@@ -1,0 +1,24 @@
+"""srewd_tpu_torch — the PyTorch / CUDA port of srewd_tpu for one NVIDIA H100.
+
+The JAX package `srewd_tpu` stays the reference; this package keeps its
+module layout and names, so each port module sits where its counterpart
+does. It imports `torch` and never `jax`.
+
+Conventions:
+  - the public functions (`DiffusionModel.generate_sr`, the ops) take and
+    return NHWC tensors, as the JAX package does; inside the UNet the
+    activations are NCHW tensors in channels_last memory, so an NHWC view
+    of them is free;
+  - every call names its `device`; randomness comes from explicit
+    `torch.Generator`s or is handed in (tests feed the JAX noise);
+  - the framework-free host modules of `srewd_tpu` (configs, data, native,
+    utils.{logging,seeding}) are reused by import, not copied.
+
+Hand-written kernels on the sampling path:
+  ops/flash_attention.py + csrc/flash_attention.cu  (CUDA C++, sm_90a)
+  ops/fused_groupnorm.py                            (Triton)
+Each has a plain PyTorch version beside it, used for CPU tensors and for
+the comparisons in chip_smoke.py.
+"""
+
+__version__ = "0.1.0"

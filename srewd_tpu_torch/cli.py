@@ -1,0 +1,100 @@
+"""Shared CLI plumbing of the port (counterpart of srewd_tpu/cli.py).
+
+Reuses the JAX package's framework-free host modules: the commented-JSON
+config, the npy data pipeline with month-grouped scalers, and seeding.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from srewd_tpu.configs.config import Config
+from srewd_tpu.data.pipeline import DataHandler
+from srewd_tpu.utils.seeding import set_seeds
+
+from .utils.jax_params import load_npz, unet_state_from_jax
+
+__all__ = ["Config", "build_data_handler", "sampler_kwargs", "set_seeds",
+           "load_unet_weights", "random_init_", "resolve_device", "denormalize"]
+
+
+def build_data_handler(opt: dict, storage_root: str | None = None, **overrides) -> DataHandler:
+    """DataHandler from opt["data"], single-process (no jax process count)."""
+    d = opt["data"]
+    kw = dict(
+        dataroot=d["dataroot"],
+        variables=d["variables"],
+        months_subset=d.get("months_subset"),
+        groups=d.get("transform_groups"),
+        transformation=d.get("transformation", "GlobalStandardScaling"),
+        train_min_date=d.get("train_min_date"),
+        train_max_date=d.get("train_max_date"),
+        val_min_date=d.get("val_min_date"),
+        val_max_date=d.get("val_max_date"),
+        train_date_ranges=d.get("train_date_ranges"),
+        val_date_ranges=d.get("val_date_ranges"),
+        train_batch_size=int(d.get("batch_size", 4)),
+        val_batch_size=int(d.get("val_batch_size", 8)),
+        shuffle=bool(d.get("use_shuffle", True)),
+        lead_time=int(d.get("lead_time", 0) or 0),
+        delays=d.get("delays"),
+        storage_root=storage_root or d["dataroot"],
+        read_threads=int(d.get("num_workers", 16)),
+    )
+    kw.update(overrides)
+    return DataHandler(**kw).process_data()
+
+
+def sampler_kwargs(opt: dict) -> dict:
+    """Sampler settings from opt["model"]["diffusion"], as srewd_tpu.cli takes them."""
+    dcfg = opt["model"].get("diffusion") or {}
+    kw: dict = {}
+    if dcfg.get("sampler"):
+        kw = {
+            "sampler": dcfg["sampler"],
+            "ddim_steps": int(dcfg.get("ddim_steps", 50)),
+            # eta defaults to 1 only where the key is absent (srewd_tpu/cli.py)
+            "ddim_eta": float(dcfg.get("ddim_eta", 1.0)),
+        }
+        if dcfg.get("tau_spacing"):
+            kw["tau_spacing"] = str(dcfg["tau_spacing"])
+    if "clip_denoised" in dcfg:
+        kw["clip_denoised"] = bool(dcfg["clip_denoised"])
+    return kw
+
+
+def resolve_device(name: str) -> torch.device:
+    """The requested device; a CUDA request without a card raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name} requested but torch.cuda.is_available() is False")
+    return device
+
+
+def random_init_(module: nn.Module, seed: int) -> None:
+    """Seeded random weights: orthogonal conv/linear kernels and zero biases
+    (the JAX package's initialisers), GroupNorm scale 1 and bias 0."""
+    g = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.ndim >= 2:
+                nn.init.orthogonal_(p, generator=g)
+            elif name.endswith(".weight"):  # GroupNorm scale
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+
+def load_unet_weights(unet: nn.Module, path: str) -> None:
+    """Load a `.npz` of srewd_tpu UNet params (keys = tree paths joined by '/')."""
+    unet.load_state_dict(unet_state_from_jax(load_npz(path)), strict=True)
+
+
+def denormalize(scalers, x: np.ndarray, months: np.ndarray) -> np.ndarray:
+    """Kelvin fields: std[m] * x + mean[m] (MonthlyScalerSet semantics)."""
+    if scalers.identity:
+        return x
+    m = np.asarray(months, np.int32)
+    return scalers.std[m] * x + scalers.mean[m]

@@ -1,0 +1,115 @@
+"""The port's entry point: `python -m srewd_tpu_torch.sample` on the CPU.
+
+A toy phydiff config over a 32x64 / 8x16 synthetic tree, with UNet params
+written as an .npz from a JAX param tree, must give finite Kelvin fields
+and a summary; the package must import without jax; a CUDA request with no
+card must raise.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from srewd_tpu.data.store import make_synthetic_weatherbench
+from srewd_tpu.models.factory import build_model as jax_build_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def save_npz(tree, path):
+    """Write a JAX param tree as an .npz whose keys are '/'-joined tree paths."""
+    flat = {"/".join(k.key for k in p): np.asarray(v)
+            for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+    np.savez(path, **flat)
+
+
+@pytest.fixture(scope="module")
+def env_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("port_cli")
+    make_synthetic_weatherbench(
+        str(root / "data"), min_date="2017-01-01-00", max_date="2017-01-03-00",
+        lr_shape=(8, 16), hr_shape=(32, 64), spectrum="t2m",
+    )
+    with open(os.path.join(
+            REPO, "configs/experiment_configs/phydiff/resdiff+physics_ddim50_eval.json")) as f:
+        cfg = json.load(f)
+    cfg["data"].update(
+        dataroot=str(root / "data"), num_workers=2,
+        train_min_date="2017-01-01-00", train_max_date="2017-01-02-00",
+        val_min_date="2017-01-02-00", val_max_date="2017-01-03-00",
+        months_subset=[1], transform_groups={"january": [1]},
+    )
+    cfg["model"]["unet"].update(inner_channel=16, norm_groups=8,
+                                channel_multiplier=[1, 2, 4], attn_res=[8], res_blocks=1)
+    cfg["model"]["diffusion"].update(image_height=32, image_width=64, ddim_steps=3)
+    (root / "cfg.json").write_text(json.dumps(cfg))
+
+    jmodel = jax_build_model(cfg["model"])
+    batch = {"HR": jnp.zeros((1, 32, 64, 1)), "LR": jnp.zeros((1, 8, 16, 1))}
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), batch)["unet"]
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(
+        lambda s: (0.1 * rng.standard_normal(s.shape)).astype(np.float32), shapes)
+    save_npz(tree, str(root / "params.npz"))
+    return root
+
+
+def test_import_leaves_jax_out():
+    code = "import sys, srewd_tpu_torch.sample, srewd_tpu_torch.cli; print('jax' in sys.modules)"
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       cwd=REPO, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "False"
+
+
+def test_sample_cli_writes_kelvin_fields(env_root):
+    out = env_root / "out"
+    r = subprocess.run(
+        [sys.executable, "-m", "srewd_tpu_torch.sample", "-c", str(env_root / "cfg.json"),
+         "-m", str(env_root / "params.npz"),
+         "--date-range", "2017-01-02-00", "2017-01-02-06", "--batch-size", "4",
+         "--save-npy", "-o", str(out), "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    files = sorted(os.listdir(out / "sr"))
+    # 6 hours in 2 batches of 4: the pad rows of the last batch are dropped
+    assert files == [f"2017-01-02-{h:02d}.npy" for h in range(6)]
+    for name in files:
+        a = np.load(out / "sr" / name)
+        assert a.shape == (32, 64, 1) and np.all(np.isfinite(a))
+        assert 200.0 < a.min() and a.max() < 340.0  # plausible 2-m temperature, K
+    summary = json.loads((out / "summary.json").read_text())
+    assert summary["fields"] == 6 and summary["sampler"] == "ddim"
+    assert summary["device"] == "cpu" and summary["fields_per_sec_steady"] > 0
+
+
+def test_cuda_request_without_card_raises(env_root):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA path is driven by chip_smoke.py")
+    from srewd_tpu_torch.sample import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["-c", str(env_root / "cfg.json"), "--date-range", "2017-01-02-00",
+              "2017-01-02-01", "--device", "cuda"])
+
+
+def test_sampler_settings_from_config():
+    from srewd_tpu_torch.cli import sampler_kwargs
+
+    def opt(d):
+        return {"model": {"diffusion": d}}
+
+    assert sampler_kwargs(opt({})) == {}
+    assert sampler_kwargs(opt({"sampler": "ddim"})) == {
+        "sampler": "ddim", "ddim_steps": 50, "ddim_eta": 1.0}
+    assert sampler_kwargs(opt({"sampler": "ddim", "ddim_eta": 0.0, "ddim_steps": 25,
+                               "clip_denoised": False})) == {
+        "sampler": "ddim", "ddim_steps": 25, "ddim_eta": 0.0, "clip_denoised": False}
