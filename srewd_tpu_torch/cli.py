@@ -1,7 +1,6 @@
-"""Shared CLI plumbing of the port (counterpart of srewd_tpu/cli.py).
-
-Reuses the JAX package's framework-free host modules: the commented-JSON
-config, the npy data pipeline with month-grouped scalers, and seeding.
+"""Shared CLI plumbing of the port (counterpart of srewd_tpu/cli.py): the
+commented-JSON config, the npy data pipeline with month-grouped scalers,
+seeding, the trainer's construction and the device choice.
 """
 
 from __future__ import annotations
@@ -10,13 +9,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from srewd_tpu.configs.config import Config
-from srewd_tpu.data.pipeline import DataHandler
-from srewd_tpu.utils.seeding import set_seeds
-
+from .configs.config import Config
+from .data.pipeline import DataHandler
 from .utils.jax_params import load_npz, unet_state_from_jax
+from .utils.seeding import set_seeds
 
-__all__ = ["Config", "build_data_handler", "sampler_kwargs", "set_seeds",
+__all__ = ["Config", "build_data_handler", "build_trainer", "sampler_kwargs", "set_seeds",
            "load_unet_weights", "random_init_", "resolve_device", "denormalize"]
 
 
@@ -63,6 +61,64 @@ def sampler_kwargs(opt: dict) -> dict:
     if "clip_denoised" in dcfg:
         kw["clip_denoised"] = bool(dcfg["clip_denoised"])
     return kw
+
+
+def build_trainer(opt: dict, device: torch.device):
+    """The DiffusionTrainer of opt (counterpart of srewd_tpu.cli.build_trainer,
+    without the encoder and multihost branches): float32 model with seeded
+    random weights, the optimizer with optional global-norm clipping and
+    finetune_norm, EMA, checkpoints, the sampler settings, and resume."""
+    from .diffusion.schedule import Schedule
+    from .models.factory import build_model
+    from .training.trainer import DiffusionTrainer
+
+    model = build_model(opt["model"])
+    random_init_(model.unet, int(opt.get("seed", 0)))
+    bs = opt["model"]["beta_schedule"]
+    ocfg = opt["train"]["optimizer"]
+    ema_cfg = opt["train"].get("ema_scheduler") or {}
+    finetune_norm = bool(opt["model"].get("finetune_norm"))
+    keep = opt["train"].get("checkpoint_keep")
+    trainer = DiffusionTrainer(
+        model,
+        Schedule.from_config(bs["train"], device=device),
+        Schedule.from_config(bs.get("val", bs["train"]), device=device),
+        device=device,
+        optimizer=ocfg.get("type", "adam"),
+        lr=float(ocfg.get("lr", 1e-4)),
+        grad_clip=ocfg.get("grad_clip"),
+        finetune_norm=finetune_norm,
+        ema_decay=(float(ema_cfg.get("ema_decay", 0.9999))
+                   if ema_cfg.get("enabled", False) else None),
+        ema_start=int(ema_cfg.get("step_start_ema", 0)),
+        seed=int(opt.get("seed", 0)),
+        checkpoint_dir=opt["path"].get("checkpoint"),
+        checkpoint_keep=int(keep) if keep else None,
+        sampler_kwargs=sampler_kwargs(opt),
+    )
+    resume = opt["path"].get("resume_state")
+    if resume:
+        if finetune_norm:
+            trainer.load_params_tolerant(resume)
+        else:
+            trainer.resume(resume)
+    return trainer
+
+
+def cuda_numerics(device: torch.device, training: bool = False) -> None:
+    """Full float32 on the card: TF32 off for matmuls and convolutions. For
+    training, also deterministic cuDNN algorithms (so that a resumed run
+    repeats the steps of the run it resumes) chosen by timing them on the
+    first call of each shape (cudnn.benchmark): cuDNN's heuristics pick
+    FFT-tiled float32 algorithms for some backward convolutions, ~3x slower
+    per step (PERF.md, PR 2)."""
+    if device.type != "cuda":
+        return
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if training:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = True
 
 
 def resolve_device(name: str) -> torch.device:

@@ -29,6 +29,11 @@
 // and row strides (in elements), so the wrapper passes the strided views the
 // 1x1 qkv / kv convolutions produce (row stride 3C or 2C) without a copy. The
 // output is a contiguous [B, N, D] tensor the wrapper allocates.
+//
+// Training: with a non-null `lse` the kernel also writes each query row's
+// log-sum-exp m + log(l) of the scaled scores, float32 [B, N], which the
+// backward (flash_attention_bwd.cu) uses to recompute P. The sampling path
+// passes null and nothing else changes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -61,8 +66,8 @@ struct Smem {
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int n,
-                 Strides st, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int n, Strides st, float scale) {
   static_assert(kThreads % BK == 0, "BK must divide the block");
   static_assert((BQ * BK) % kThreads == 0, "score tile must split evenly");
   constexpr int TD = D < kThreads ? D : kThreads;  // threads along D in P V
@@ -200,11 +205,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DC; ++c)
       store_as(o + ((long long)b * n + row) * D + o_col + c * TD, acc[r][c] * inv_l);
   }
+  if (lse != nullptr && tid < BQ && q0 + tid < n)
+    lse[(long long)b * n + q0 + tid] = row_m[tid] + logf(row_l[tid]);
 }
 
 template <typename T, int D, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
-                   int n, Strides st, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int b, int n, Strides st, float scale, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, D, BQ, BK>;
   const size_t bytes = Smem<D, BQ, BK>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -213,7 +220,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((n + BQ - 1) / BQ, b);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n, st, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, n, st, scale);
   return cudaGetLastError();
 }
 
@@ -221,12 +228,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
 // statistics fit the dynamic shared-memory limit (largest: D=512, 166 KB).
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o,
-                     int b, int n, Strides st, float scale, cudaStream_t stream) {
+                     float* lse, int b, int n, Strides st, float scale, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64, 64, 64>(q, k, v, o, b, n, st, scale, stream);
-    case 128: return launch<T, 128, 32, 64>(q, k, v, o, b, n, st, scale, stream);
-    case 256: return launch<T, 256, 32, 32>(q, k, v, o, b, n, st, scale, stream);
-    case 512: return launch<T, 512, 16, 32>(q, k, v, o, b, n, st, scale, stream);
+    case 64: return launch<T, 64, 64, 64>(q, k, v, o, lse, b, n, st, scale, stream);
+    case 128: return launch<T, 128, 32, 64>(q, k, v, o, lse, b, n, st, scale, stream);
+    case 256: return launch<T, 256, 32, 32>(q, k, v, o, lse, b, n, st, scale, stream);
+    case 512: return launch<T, 512, 16, 32>(q, k, v, o, lse, b, n, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -235,16 +242,17 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
+// dtype: 0 = float32, 1 = bfloat16. `lse`: null, or float32 [B, N] for the
+// rows' log-sum-exp. Returns the cudaError_t of the launch
 // (cudaGetLastError() right after it), 0 on success. Does not synchronise.
 int srewd_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                              int b, int n, int d, long long q_b, long long q_r,
+                              float* lse, int b, int n, int d, long long q_b, long long q_r,
                               long long k_b, long long k_r, long long v_b,
                               long long v_r, float scale, int dtype, void* stream) {
   Strides st{q_b, q_r, k_b, k_r, v_b, v_r};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(d, q, k, v, o, b, n, st, scale, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(d, q, k, v, o, b, n, st, scale, s);
+  if (dtype == 0) return (int)dispatch<float>(d, q, k, v, o, lse, b, n, st, scale, s);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(d, q, k, v, o, lse, b, n, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

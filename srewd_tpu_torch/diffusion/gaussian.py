@@ -1,4 +1,11 @@
-"""Gaussian diffusion reverse samplers (port of srewd_tpu/diffusion/gaussian.py).
+"""Gaussian diffusion: the training draws and the reverse samplers (port of
+srewd_tpu/diffusion/gaussian.py).
+
+Training draws ONE integer t ~ U[1, T] per batch, then a continuous level
+gamma ~ U(sqrt_acp_prev[t-1], sqrt_acp_prev[t]) per sample
+(`draw_time_and_gamma`), and noises x0 to x_t = gamma x0 + sqrt(1 - gamma^2)
+eps (`q_sample`). The draws stay on the device: t is a one-element tensor,
+so nothing waits on the host.
 
 The JAX `lax.scan` becomes a Python loop over tensors on the device; the
 schedule constants are indexed there, so the loop never waits on the host.
@@ -22,6 +29,44 @@ from .schedule import Schedule
 
 # denoise_fn(x_t, noise_level[B]) -> predicted epsilon; conditioning closed over.
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def q_sample(x_start: torch.Tensor, gamma: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Forward-noise x0 at the continuous level gamma ([B], per sample)."""
+    g = gamma.reshape(-1, 1, 1, 1)
+    return g * x_start + torch.sqrt(1.0 - g * g) * noise
+
+
+def draw_time_and_gamma(
+    schedule: Schedule,
+    batch: int,
+    *,
+    generator: Optional[torch.Generator] = None,
+    t: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
+):
+    """(t, gamma): one t ~ U[1,T] per batch, gamma ~ U(s[t-1], s[t]) per sample,
+    s = sqrt_alphas_cumprod_prev.
+
+    `t` ([1] integer tensor) and `u` ([B] uniforms in [0, 1)) may be handed
+    in instead of drawn from `generator`; gamma = max(lo, u (hi - lo) + lo),
+    the form of jax.random.uniform(minval=lo, maxval=hi) in the JAX package.
+    s falls with t, so lo > hi and that form gives gamma = lo for every
+    sample; the reference's np.random.uniform(lo, hi) would spread gamma
+    over the interval. The port keeps the JAX package's draw (ROADMAP.md
+    Queue 3 records the difference).
+    """
+    device = schedule.betas.device
+    if t is None:
+        t = torch.randint(1, schedule.num_timesteps + 1, (1,), generator=generator,
+                          device=device)
+    if u is None:
+        u = torch.rand(batch, generator=generator, device=device)
+    t = t.to(device).reshape(1)
+    lo = schedule.sqrt_alphas_cumprod_prev[t - 1]
+    hi = schedule.sqrt_alphas_cumprod_prev[t]
+    gamma = torch.maximum(lo, u.to(device) * (hi - lo) + lo)
+    return t, gamma
 
 
 def predict_start_from_noise(schedule: Schedule, x_t, t, eps):

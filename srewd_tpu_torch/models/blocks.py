@@ -17,8 +17,8 @@ import math
 import torch
 import torch.nn as nn
 
-from ..ops.flash_attention import flash_attention
-from ..ops.fused_groupnorm import gn_swish
+from ..ops.flash_attention import flash_attention_trainable
+from ..ops.fused_groupnorm import gn_swish_trainable
 from ..ops.resize import upsample_nearest2x
 
 
@@ -91,7 +91,7 @@ class FusedGroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = gn_swish(
+        y = gn_swish_trainable(
             _nhwc(x), self.weight.to(x.dtype), self.bias.to(x.dtype),
             self.num_groups, self.eps, self.with_swish,
         )
@@ -135,8 +135,9 @@ class ResnetBlock(nn.Module):
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
             b: int, h: int, w: int) -> torch.Tensor:
-    """flash_attention over [B, HW, C] views; returns NCHW channels_last."""
-    out = flash_attention(q, k, v, scale)
+    """flash attention (K1, and K2 in the backward) over [B, HW, C] views;
+    returns NCHW channels_last."""
+    out = flash_attention_trainable(q, k, v, scale)
     return _nchw(out.reshape(b, h, w, out.shape[-1]))
 
 

@@ -1,4 +1,5 @@
-"""DiffusionModel — arch wiring for sampling (port of srewd_tpu/models/factory.py).
+"""DiffusionModel: arch wiring for training and sampling (port of
+srewd_tpu/models/factory.py).
 
 Per-arch contract, as in the JAX package (batch is NHWC {"HR","LR","SR"};
 "SR" is the bicubic x4 upsample of LR, computed on the device when absent):
@@ -6,6 +7,14 @@ Per-arch contract, as in the JAX package (batch is NHWC {"HR","LR","SR"};
   arch     x0 target   eps-net input              addback   conditioning
   sr3      HR          concat(SR, x_t)            —         —
   phydiff  HR - SR     concat(SR, x_t) + stencil  + SR      DWT(SR) 3-comp
+
+Loss: the eps-prediction error of one draw (t, gamma, noise), L1 mean by
+default, L2 selectable, with the UNet in train mode (dropout on).
+
+Training runs in float32. `generate_sr` with a compute dtype on the UNet
+casts its weights IN PLACE; a trainer must therefore never sample through
+its own float32 model with a dtype set (the port's trainer samples through
+a copy).
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..diffusion.gaussian import ddim_sample_chain, sample_chain
+from ..diffusion.gaussian import ddim_sample_chain, draw_time_and_gamma, q_sample, sample_chain
 from ..diffusion.schedule import Schedule
 from ..ops.finite_diff import fd_stencils
 from ..ops.resize import bicubic_up4
@@ -31,6 +40,7 @@ class DiffusionModel:
     arch: str
     unet: WeatherUNet
     conditional: bool = True
+    loss_type: str = "l1"
 
     def __post_init__(self):
         if self.arch not in ARCHS:
@@ -40,6 +50,49 @@ class DiffusionModel:
         """The image-space condition ('SR' slot semantics)."""
         sr = batch.get("SR")
         return sr if sr is not None else bicubic_up4(batch["LR"])
+
+    def _conditioning(self, cond: torch.Tensor) -> dict:
+        """The UNet's chain-constant keyword inputs for this architecture."""
+        if self.arch == "phydiff":
+            return {"dwt_pyramid": self.unet.make_dwt_pyramid(cond), "fd_maps": fd_stencils(cond)}
+        return {}
+
+    def loss(
+        self,
+        batch: dict,
+        schedule: Schedule,
+        *,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[torch.Tensor] = None,
+        u: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        train: bool = True,
+    ) -> torch.Tensor:
+        """Single-draw diffusion training loss (a scalar tensor on the device).
+
+        t, gamma's uniforms `u` and the noise are drawn from `generator`
+        unless handed in (tests feed the JAX draws); dropout draws from the
+        device's default generator.
+        """
+        if self.unet.dtype is not None:
+            raise NotImplementedError(
+                "training runs in float32; bf16 training with float32 master weights "
+                "is ROADMAP.md Queue 1 item 4")
+        hr = batch["HR"]
+        cond = self.condition(batch)
+        x_start = hr if self.arch == "sr3" else hr - cond
+        _, gamma = draw_time_and_gamma(schedule, hr.shape[0], generator=generator, t=t, u=u)
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
+        x_noisy = q_sample(x_start, gamma, noise)
+        x_in = torch.cat([cond, x_noisy], dim=-1) if self.conditional else x_noisy
+        self.unet.train(train)
+        eps = self.unet(x_in, gamma, **self._conditioning(cond))
+        if self.loss_type == "l1":
+            return (noise - eps).abs().mean()
+        if self.loss_type == "l2":
+            return (noise - eps).square().mean()
+        raise NotImplementedError(self.loss_type)
 
     @torch.no_grad()
     def generate_sr(
@@ -65,10 +118,7 @@ class DiffusionModel:
         diffusion/gaussian.py).
         """
         cond = self.condition(batch).float()
-        kwargs: dict = {}
-        if self.arch == "phydiff":
-            kwargs = {"dwt_pyramid": self.unet.make_dwt_pyramid(cond),
-                      "fd_maps": fd_stencils(cond)}
+        kwargs = self._conditioning(cond)
         if self.unet.dtype is not None:
             self.unet.to(self.unet.dtype)  # no-op once cast
         self.unet.eval()
@@ -86,7 +136,7 @@ class DiffusionModel:
             img = sample_chain(schedule, denoise_fn, tuple(cond.shape), **common)
         else:
             raise NotImplementedError(
-                f"sampler {sampler!r} is not ported yet (DPM-Solver++: ROADMAP.md Queue 1 item 2)")
+                f"sampler {sampler!r} is not ported yet (DPM-Solver++: ROADMAP.md Queue 1 item 1)")
         if self.arch != "sr3":
             img = img + cond
         return img
@@ -98,11 +148,17 @@ def build_model(model_cfg: dict, dtype: Optional[torch.dtype] = None) -> Diffusi
     unet_cfg = model_cfg.get("unet", {})
     diff_cfg = model_cfg.get("diffusion", {})
     channels = int(diff_cfg.get("channels", 1))
+    image_channels = int(diff_cfg.get("image_channels", channels))
+    conditional = bool(diff_cfg.get("conditional", True))
     if dtype == torch.float32:
         dtype = None
     unet = WeatherUNet(
         variant=arch,
-        in_channel=int(unet_cfg.get("in_channel", 2 * channels)),
+        # the UNet's input is concat(condition, x_t) (x_t alone when
+        # unconditional), as flax infers it from the input; the config's
+        # in_channel counts phydiff's stencil maps in some configs and not
+        # in others, so it is not read
+        in_channel=(2 if conditional else 1) * image_channels,
         out_channel=int(unet_cfg.get("out_channel", channels)),
         inner_channel=int(unet_cfg.get("inner_channel", 64)),
         norm_groups=int(unet_cfg.get("norm_groups", 32)),
@@ -111,8 +167,8 @@ def build_model(model_cfg: dict, dtype: Optional[torch.dtype] = None) -> Diffusi
         res_blocks=int(unet_cfg.get("res_blocks", 2)),
         dropout=float(unet_cfg.get("dropout", 0.0)),
         image_height=int(diff_cfg.get("image_height", 128)),
-        image_channels=int(diff_cfg.get("image_channels", channels)),
+        image_channels=image_channels,
         dtype=dtype,
     )
-    return DiffusionModel(arch=arch, unet=unet,
-                          conditional=bool(diff_cfg.get("conditional", True)))
+    return DiffusionModel(arch=arch, unet=unet, conditional=conditional,
+                          loss_type=model_cfg.get("loss_type", "l1"))

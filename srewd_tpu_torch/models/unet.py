@@ -31,9 +31,9 @@ from .blocks import (
 
 # Variants of srewd_tpu's WeatherUNet not ported yet, with their ROADMAP item.
 _LATER = {
-    "resdiff": "Queue 1 item 3 (resdiff)",
-    "srdiff": "Queue 1 item 4 (encoders, srdiff and physrdiff)",
-    "physrdiff": "Queue 1 item 4 (encoders, srdiff and physrdiff)",
+    "resdiff": "Queue 1 item 2 (resdiff)",
+    "srdiff": "Queue 1 item 3 (encoders, srdiff and physrdiff)",
+    "physrdiff": "Queue 1 item 3 (encoders, srdiff and physrdiff)",
 }
 _J = 4  # wavelet pyramid levels feeding the cross-attention (resdiff/unet.py:73)
 

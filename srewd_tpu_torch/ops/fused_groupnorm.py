@@ -20,6 +20,13 @@ reads rows of CG = C/G channels at a row stride of C. At small CG those
 reads use only part of each 32-byte sector; the neighbouring groups'
 programs, resident at the same time, read the rest from L2. Widening a
 program to several groups, or splitting HW across programs, is later work.
+
+Training: `GNSwishFn` launches the kernel in its forward and recomputes the
+gradient through the plain math with torch.autograd in its backward, as the
+JAX package's `_pallas_gn_swish_vjp` takes `jax.vjp` of `_pure_gn_swish`
+(the JAX package has no backward kernel for it either). The backward's math
+(`_gn_swish_math`) does not count as a call of `gn_swish_reference`, so a
+count of 0 plain calls still says that no forward fell back.
 """
 
 from __future__ import annotations
@@ -27,6 +34,19 @@ from __future__ import annotations
 import torch
 
 from . import use_plain
+
+
+def _gn_swish_math(x, weight, bias, num_groups, eps, apply_swish):
+    b, h, w, c = x.shape
+    cg = c // num_groups
+    x32 = x.float().reshape(b, h * w, num_groups, cg)
+    mean = x32.mean(dim=(1, 3), keepdim=True)
+    var = x32.square().mean(dim=(1, 3), keepdim=True) - mean.square()
+    y = ((x32 - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
+    y = (y * weight.float() + bias.float()).to(x.dtype)
+    if apply_swish:
+        y = y * torch.sigmoid(y)
+    return y
 
 
 def gn_swish_reference(
@@ -39,16 +59,7 @@ def gn_swish_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version (the semantics of pallas_fused._pure_gn_swish)."""
     gn_swish_reference.calls += 1
-    b, h, w, c = x.shape
-    cg = c // num_groups
-    x32 = x.float().reshape(b, h * w, num_groups, cg)
-    mean = x32.mean(dim=(1, 3), keepdim=True)
-    var = x32.square().mean(dim=(1, 3), keepdim=True) - mean.square()
-    y = ((x32 - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
-    y = (y * weight.float() + bias.float()).to(x.dtype)
-    if apply_swish:
-        y = y * torch.sigmoid(y)
-    return y
+    return _gn_swish_math(x, weight, bias, num_groups, eps, apply_swish)
 
 
 gn_swish_reference.calls = 0
@@ -159,3 +170,38 @@ def gn_swish(
 
 
 gn_swish.launches = 0
+
+
+class GNSwishFn(torch.autograd.Function):
+    """gn_swish forward (the kernel, or the plain version on the CPU); the
+    backward recomputes through `_gn_swish_math` with torch.autograd."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, apply_swish):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.cfg = (num_groups, eps, apply_swish)
+        return gn_swish(x, weight, bias, num_groups, eps, apply_swish)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = _gn_swish_math(*inputs, *ctx.cfg)
+        grads = torch.autograd.grad(y, inputs, g)
+        return (*grads, None, None, None)
+
+
+def gn_swish_trainable(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-5,
+    apply_swish: bool = True,
+) -> torch.Tensor:
+    """gn_swish that autograd can differentiate: through `GNSwishFn` when
+    grad is enabled and an input needs it, else the bare forward."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return GNSwishFn.apply(x, weight, bias, num_groups, eps, apply_swish)
+    return gn_swish(x, weight, bias, num_groups, eps, apply_swish)

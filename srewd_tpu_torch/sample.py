@@ -53,19 +53,16 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    from srewd_tpu.data.timeindex import format_date, months_of, parse_date
-
     from .cli import (
-        Config, build_data_handler, denormalize, load_unet_weights, random_init_,
-        resolve_device, sampler_kwargs, set_seeds,
+        Config, build_data_handler, cuda_numerics, denormalize, load_unet_weights,
+        random_init_, resolve_device, sampler_kwargs, set_seeds,
     )
+    from .data.timeindex import format_date, months_of, parse_date
     from .diffusion.schedule import Schedule
     from .models.factory import build_model
 
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_numerics(device)
     logging.basicConfig(level=logging.INFO)
     logger = logging.getLogger("base")
 

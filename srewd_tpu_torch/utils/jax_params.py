@@ -1,4 +1,5 @@
-"""Weight bridge: srewd_tpu's flax WeatherUNet param tree -> the port's state_dict.
+"""Weight bridge between srewd_tpu's flax WeatherUNet param tree and the
+port's state_dict, in both directions.
 
 The inverse of srewd_tpu/utils/torch_convert.py. Flax names modules in call
 order: `ResnetBlockWithAttn_k` counts across downs, mid and ups;
@@ -8,7 +9,10 @@ is the i-th downsample boundary; `Conv_0` at the top is the stem and
 read off the tree itself.
 
 Layouts: Conv [kh,kw,I,O] -> [O,I,kh,kw]; Dense [I,O] -> Linear [O,I];
-GroupNorm `scale` -> `weight`.
+GroupNorm `scale` -> `weight`. Gradients and optimizer moments have their
+parameters' layouts, so the same maps carry them: `unet_state_from_jax` of
+a JAX gradient tree gives the port's gradients by parameter name, and
+`jax_tree_from_unet_state(grads, like=params_tree)` the other way.
 
 `load_npz` reads a `.npz` whose keys are the tree paths joined by "/".
 """
@@ -54,22 +58,47 @@ class _Tree:
         return set(walk(self.tree, ()))
 
 
-def _conv(w):
-    return np.transpose(w, (3, 2, 0, 1))
+# JAX layout -> torch layout, and back, per kind of leaf
+_TO_TORCH = {
+    "conv": lambda w: np.transpose(w, (3, 2, 0, 1)),
+    "lin": lambda w: np.transpose(w, (1, 0)),
+    "same": lambda w: w,
+}
+_TO_JAX = {
+    "conv": lambda w: np.transpose(w, (2, 3, 1, 0)),
+    "lin": lambda w: np.transpose(w, (1, 0)),
+    "same": lambda w: w,
+}
 
 
-def _lin(w):
-    return np.transpose(w, (1, 0))
+class _Spec:
+    """Records port key -> (JAX path, kind) while reading a tree's layout."""
+
+    def __init__(self, tree: dict):
+        self.t = _Tree(tree)
+        self.map: "OrderedDict[str, tuple]" = OrderedDict()
+
+    def has(self, *path) -> bool:
+        return self.t.has(*path)
+
+    def get(self, *path):
+        self.t.get(*path)
+        return (path, "same")
 
 
-def unet_state_from_jax(tree: dict) -> "OrderedDict[str, torch.Tensor]":
-    """Map a flax WeatherUNet param tree (sr3 or phydiff) to the port's state_dict.
+def _conv(leaf):
+    return (leaf[0], "conv")
 
-    Raises if a leaf of the tree is left unused; `load_state_dict(strict=True)`
-    then catches any key the port expects and the tree lacks.
-    """
-    t = _Tree(tree)
-    sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
+
+def _lin(leaf):
+    return (leaf[0], "lin")
+
+
+def _key_map(tree: dict) -> "OrderedDict[str, tuple]":
+    """port state_dict key -> (JAX tree path, layout kind) for a flax
+    WeatherUNet tree (sr3 or phydiff). Raises if a leaf is left unused."""
+    t = _Spec(tree)
+    sd = t.map
 
     def block(prefix, *path):
         sd[f"{prefix}.block.0.weight"] = t.get(*path, "FusedGroupNorm_0", "scale")
@@ -148,12 +177,63 @@ def unet_state_from_jax(tree: dict) -> "OrderedDict[str, torch.Tensor]":
         i += 1
     block("final_conv", "Block_0")
 
-    unused = t.leaves() - t.used
+    unused = t.t.leaves() - t.t.used
     if unused:
         raise ValueError(f"params not consumed by the port: {sorted('/'.join(p) for p in unused)}")
+    return sd
+
+
+def _get(tree: dict, path: tuple) -> np.ndarray:
+    node = tree
+    for p in path:
+        node = node[p]
+    return np.asarray(node)
+
+
+def unet_state_from_jax(tree: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax WeatherUNet tree (params, or anything of their layout:
+    gradients, optimizer moments) to the port's state_dict keys.
+
+    Raises if a leaf of the tree is left unused; `load_state_dict(strict=True)`
+    then catches any key the port expects and the tree lacks.
+    """
     return OrderedDict(
-        (key, torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))) for key, v in sd.items()
+        (key, torch.from_numpy(np.ascontiguousarray(_TO_TORCH[kind](_get(tree, path)),
+                                                    dtype=np.float32)))
+        for key, (path, kind) in _key_map(tree).items()
     )
+
+
+def jax_tree_from_unet_state(state: Mapping, like: dict) -> dict:
+    """The inverse: a port state_dict (or gradients / moments by parameter
+    name) as a nested dict of float32 numpy arrays in the layout of the JAX
+    tree `like` (only its structure is read)."""
+    spec = _key_map(like)
+    if set(spec) != set(state):
+        raise ValueError(f"keys differ: only in the port {sorted(set(state) - set(spec))}, "
+                         f"only in the tree {sorted(set(spec) - set(state))}")
+    out: dict = {}
+    for key, (path, kind) in spec.items():
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        v = state[key]
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        node[path[-1]] = np.ascontiguousarray(_TO_JAX[kind](v), dtype=np.float32)
+    return out
+
+
+def optimizer_moments(optimizer, module) -> dict:
+    """An optimizer's per-parameter state tensors by the module's parameter
+    names ({"exp_avg": {name: tensor}, "exp_avg_sq": {...}} for Adam), for
+    `jax_tree_from_unet_state` to compare with optax's moments."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    out: dict = {}
+    for p, st in optimizer.state.items():
+        for key, val in st.items():
+            if isinstance(val, torch.Tensor) and val.shape == p.shape:
+                out.setdefault(key, {})[names[id(p)]] = val
+    return out
 
 
 def load_npz(path: str) -> dict:

@@ -62,11 +62,15 @@ def env_root(tmp_path_factory):
 
 
 def test_import_leaves_jax_out():
-    code = "import sys, srewd_tpu_torch.sample, srewd_tpu_torch.cli; print('jax' in sys.modules)"
+    """Neither jax nor any module of the JAX package (srewd_tpu) is loaded by
+    the port's entry points."""
+    code = ("import sys, srewd_tpu_torch.sample, srewd_tpu_torch.train, srewd_tpu_torch.cli\n"
+            "print('jax' in sys.modules, sorted(m for m in sys.modules "
+            "if m.split('.')[0] == 'srewd_tpu'))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        cwd=REPO, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert r.stdout.strip() == "False"
+    assert r.stdout.strip() == "False []"
 
 
 def test_sample_cli_writes_kelvin_fields(env_root):
