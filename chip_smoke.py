@@ -10,7 +10,11 @@ Phases, one JSON line each; any failure exits non-zero before the result:
   2. build    — nvcc builds csrc/flash_attention.cu (K1) and
                 csrc/flash_attention_bwd.cu (K2), both at once, into
                 build/srewd_tpu_torch/, and the first Triton compile of the
-                GroupNorm+Swish kernel (K3).
+                GroupNorm+Swish kernel (K3). One line per CUDA kernel
+                instantiation: registers, static shared memory and spill
+                bytes from `nvcc -Xptxas -v`, and, where cuobjdump is found,
+                the count of tensor-core (HMMA) instructions in its SASS,
+                which must be > 0 for every K1 and K2 kernel but Δ's.
   3. kernels  — each kernel against its plain PyTorch version at every shape
                 one full-width phydiff UNet call gives it (found by hooks on
                 one forward pass), float32 (TF32 off) and bfloat16, in the
@@ -21,7 +25,9 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 for K2; the port never calls it). K1 and K3 at batch 8 (the
                 sampling batch); K2 at batch 4 (the training batch), with K1's
                 row log-sum-exp checked beside it (same O as without it, LSE
-                against torch.logsumexp of the plain scores).
+                against torch.logsumexp of the plain scores), and K2 run twice
+                on the same inputs: dq, dk and dv must be the same bit for bit
+                (no atomics, sums in a fixed order).
   4. slice    — `srewd_tpu_torch.sample.main` on a synthetic 128x256 / 32x64
                 t2m tree with the shipped DDIM-50 phydiff config at full width:
                 24 fields in float32. K1's and K3's launch counts must be > 0
@@ -59,8 +65,15 @@ the first run of phase 6 (`launches_sample`: in phase 4); `ms`, `plain_ms`,
 one UNet call at batch 8 for K1 and K3, one training step at batch 4 for K2
 (per shape: calls x the median time of one call). `bound_ms` is the least
 time the card could take for that work: the larger of the bytes (each input
-read once, each output written once) over 3.35 TB/s and the flops over the
-float32 CUDA-core peak of 67 TFLOP/s (published H100 SXM figures).
+read once, each output written once) over 3.35 TB/s and the flops over a
+peak rate (published H100 SXM figures). K1 and K2 run float32 on the tensor
+cores as three TF32 products per float32 product (3xTF32), so their float32
+peak is 495 / 3 = 165 TFLOP/s; `bound_ms_cuda_cores` beside it takes the
+float32 CUDA-core peak of 67 TFLOP/s, the bound of the earlier CUDA-core
+kernels' records.
+K3 runs on the CUDA cores (67 TFLOP/s float32); bfloat16 takes 989 TFLOP/s.
+The op counts are 4·B·N²·D for K1 and 10·B·N²·D for K2 (the TPU kernels'
+algorithm; K2's recomputing design does 14).
 
 Tolerances of phase 3 (max abs error against the plain version):
   K1, K3 float32: 1e-5 * max(1, max|plain|) — float32 sums in another order;
@@ -94,6 +107,7 @@ CONFIG_TRAIN = os.path.join(
 BATCH = 8
 TRAIN_BATCH = 4
 PEAK_F32 = 67e12  # float32 CUDA-core FLOP/s, H100 SXM
+PEAK_TF32X3 = 495e12 / 3  # float32-accurate 3xTF32 on the tensor cores, H100 SXM
 PEAK_BF16 = 989e12  # bf16 dense tensor-core FLOP/s, H100 SXM
 HBM = 3.35e12  # bytes/s
 
@@ -196,14 +210,16 @@ def main_path_shapes(torch, model, device):
 
 def _totals() -> dict:
     return {"f32_err": 0.0, "bf16_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0, "bound_by": None}
+            "bound_ms": 0.0, "bound_by": None, "bound_ms_cuda_cores": 0.0}
 
 
-def _add(tot: dict, calls: int, ms: float, plain_ms: float, library_ms, b: tuple) -> None:
+def _add(tot: dict, calls: int, ms: float, plain_ms: float, library_ms, b: tuple,
+         b_cuda_cores: float) -> None:
     tot["ms"] += calls * ms
     tot["plain_ms"] += calls * plain_ms
     tot["library_ms"] = None if library_ms is None else tot["library_ms"] + calls * library_ms
     tot["bound_ms"] += calls * b[0]
+    tot["bound_ms_cuda_cores"] += calls * b_cuda_cores
     tot["bound_by"] = b[1] if tot["bound_by"] in (None, b[1]) else "operations and bytes"
 
 
@@ -221,7 +237,8 @@ def compare_attention(torch, attn_shapes, device) -> dict:
         scale = 1.0 / math.sqrt(d)
         for dtype in (torch.float32, torch.bfloat16):
             name = "f32" if dtype == torch.float32 else "bf16"
-            isz, peak = (4, PEAK_F32) if dtype == torch.float32 else (2, PEAK_BF16)
+            f32 = dtype == torch.float32
+            isz, peak = (4, PEAK_TF32X3) if f32 else (2, PEAK_BF16)
             q, k, v = attention_inputs(torch, kind, BATCH, n, d, dtype, device, g)
             out = flash_attention(q, k, v, scale)
             torch.cuda.synchronize()
@@ -232,15 +249,17 @@ def compare_attention(torch, attn_shapes, device) -> dict:
             ms = cuda_ms(torch, lambda: flash_attention(q, k, v, scale), 10)
             plain_ms = cuda_ms(torch, lambda: attention_reference(q, k, v, scale), 10)
             lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10)
-            b = bound(4.0 * BATCH * n * n * d, 4.0 * BATCH * n * d * isz, peak)
+            work = (4.0 * BATCH * n * n * d, 4.0 * BATCH * n * d * isz)
+            b, b_cc = bound(*work, peak), bound(*work)[0] if f32 else None
             emit({"phase": "kernel", "kernel": "flash_attention", "layout": kind, "n": n, "d": d,
                   "batch": BATCH, "dtype": name, "calls_per_unet_call": calls,
                   "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]})
+                  "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
+                  "bound_ms_cuda_cores": b_cc})
             check(err <= tol, f"flash_attention {kind} N={n} D={d} {name}: err {err} > {tol}")
             k1[f"{name}_err"] = max(k1[f"{name}_err"], err)
-            if dtype == torch.float32:
-                _add(k1, calls, ms, plain_ms, lib_ms, b)
+            if f32:
+                _add(k1, calls, ms, plain_ms, lib_ms, b, b_cc)
             del q, k, v, out
 
             # K2 at the training batch, with the forward's row log-sum-exp
@@ -253,11 +272,13 @@ def compare_attention(torch, attn_shapes, device) -> dict:
             del s
             same_o = bool(torch.equal(o, o_plain_fwd))
             dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, scale)
+            again = flash_attention_backward(q, k, v, o, lse, do, scale)
             torch.cuda.synchronize()
+            same_grads = all(bool(torch.equal(a, b)) for a, b in zip((dq, dk, dv), again))
             refs = attention_backward_reference(q, k, v, do, scale)
             errs = [(a.float() - r.float()).abs().max().item() for a, r in zip((dq, dk, dv), refs)]
             tols = [tolerance(torch, r, dtype, f32_rel=1e-4) for r in refs]
-            del refs, dq, dk, dv
+            del refs, dq, dk, dv, again
             ms2 = cuda_ms(torch, lambda: flash_attention_backward(q, k, v, o, lse, do, scale), 10)
             plain_ms2 = cuda_ms(
                 torch, lambda: attention_backward_reference(q, k, v, do, scale), 5)
@@ -266,23 +287,27 @@ def compare_attention(torch, attn_shapes, device) -> dict:
             lib_ms2 = cuda_ms(torch, lambda: torch.autograd.grad(
                 lib_out, (ql, kl, vl), do, retain_graph=True), 5)
             del lib_out, ql, kl, vl
-            b2 = bound(10.0 * TRAIN_BATCH * n * n * d,
-                       8.0 * TRAIN_BATCH * n * d * isz + 4.0 * TRAIN_BATCH * n, peak)
+            work2 = (10.0 * TRAIN_BATCH * n * n * d,
+                     8.0 * TRAIN_BATCH * n * d * isz + 4.0 * TRAIN_BATCH * n)
+            b2, b2_cc = bound(*work2, peak), bound(*work2)[0] if f32 else None
             emit({"phase": "kernel", "kernel": "flash_attention_backward", "layout": kind,
                   "n": n, "d": d, "batch": TRAIN_BATCH, "dtype": name,
                   "calls_per_step": calls, "max_abs_err_dq_dk_dv": errs, "tol": tols,
+                  "same_grads_twice": same_grads,
                   "lse_max_abs_err": lse_err, "o_same_with_lse": same_o, "ms": ms2,
                   "plain_ms": plain_ms2, "library_ms": lib_ms2, "bound_ms": b2[0],
-                  "bound_by": b2[1]})
+                  "bound_by": b2[1], "bound_ms_cuda_cores": b2_cc})
             for nm, e, t in zip(("dq", "dk", "dv"), errs, tols):
                 check(e <= t, f"flash_attention_backward {kind} N={n} D={d} {name} {nm}: "
                               f"err {e} > {t}")
+            check(same_grads, f"K2 gave other gradients on the same inputs ({kind} N={n} D={d} "
+                              f"{name})")
             check(same_o, f"K1 with the LSE output changed O ({kind} N={n} D={d} {name})")
             check(lse_err <= 1e-4 * max(1.0, lse.abs().max().item()),
                   f"K1's LSE is off by {lse_err} ({kind} N={n} D={d} {name})")
             k2[f"{name}_err"] = max(k2[f"{name}_err"], *errs)
-            if dtype == torch.float32:
-                _add(k2, calls, ms2, plain_ms2, lib_ms2, b2)
+            if f32:
+                _add(k2, calls, ms2, plain_ms2, lib_ms2, b2, b2_cc)
             del q, k, v, do, o, lse, o_plain_fwd
             torch.cuda.empty_cache()
     return {"flash_attention": k1, "flash_attention_backward": k2}
@@ -317,7 +342,7 @@ def compare_gn(torch, gn_shapes, device) -> dict:
             check(err <= tol, f"gn_swish {shape} swish={swish} {name}: err {err} > {tol}")
             k3[f"{name}_err"] = max(k3[f"{name}_err"], err)
             if dtype == torch.float32:
-                _add(k3, calls, ms, plain_ms, None, bd)
+                _add(k3, calls, ms, plain_ms, None, bd, bd[0])
     return {"gn_swish": k3}
 
 
@@ -718,10 +743,45 @@ def kernel_entry(name, route, source, replaces, tot, launches, launches_sample=N
              "launches": launches, "max_abs_err": tot["f32_err"],
              "max_abs_err_bf16": tot["bf16_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
-             "library_ms": tot["library_ms"]}
+             "bound_ms_cuda_cores": tot["bound_ms_cuda_cores"], "library_ms": tot["library_ms"]}
     if launches_sample is not None:
         entry["launches_sample"] = launches_sample
     return entry
+
+
+def kernel_name(demangled: str) -> str:
+    """A demangled kernel signature without its return type, anonymous
+    namespace and parameter list: `kernel<float, (int)64, ...>`."""
+    name = demangled.removeprefix("void ")
+    for anon in ("<unnamed>::", "(anonymous namespace)::"):
+        name = name.replace(anon, "")
+    depth = 0
+    for i, ch in enumerate(name):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+            if depth == 0:
+                return name[:i + 1]
+    return name.split("(")[0]
+
+
+def report_cuda_kernels() -> None:
+    """Phase 2's line per CUDA kernel instantiation: ptxas's registers,
+    static shared memory and spills, and the HMMA count of its SASS."""
+    from srewd_tpu_torch.ops import _build
+
+    for source in _build.SOURCES:
+        hmma = _build.sass_mma_counts(source)
+        for r in _build.ptxas_report(source):
+            name = kernel_name(r["name"])
+            count = None if hmma is None else hmma.get(r["kernel"], 0)
+            emit({"phase": "build", "source": source, "kernel": name,
+                  "registers": r["registers"], "smem_static_bytes": r["smem_static"],
+                  "spill_store_bytes": r["spill_stores"], "spill_load_bytes": r["spill_loads"],
+                  "stack_bytes": r["stack"], "hmma": count})
+            check(count is None or count > 0 or "delta_kernel" in name,
+                  f"{name} has no tensor-core instruction in its SASS")
 
 
 def main(argv: list) -> int:
@@ -767,6 +827,7 @@ def main(argv: list) -> int:
     emit({"phase": "build", "sources": list(_build.SOURCES), "nvcc_sec": t_nvcc,
           "triton_first_compile_sec": t_triton,
           "build_dir": os.path.relpath(_build.BUILD_DIR, REPO)})
+    report_cuda_kernels()
     os.makedirs(os.path.join(BUILD, "profile"), exist_ok=True)
     if argv:
         profile_unet(torch, device)

@@ -1,239 +1,209 @@
-// Exact single-head attention O = softmax(scale * Q K^T) V for Hopper (sm_90a).
+// Exact single-head attention O = softmax(scale * Q K^T) V for Hopper (sm_90a),
+// on the tensor cores.
 //
 // Replaces the TPU kernel `flash_attention` in srewd_tpu/ops/flash_attention.py
 // (body `_kernel`). That kernel keeps the whole K and V of a sample in VMEM
 // and takes a full-row softmax; at the largest phydiff map (N=8192, D=64) K
 // and V are 2 MB in float32, far beyond the 227 KB of shared memory a block
-// may use here. So this kernel tiles K and V and keeps an online softmax:
-// per query row a running max m and sum l, and a float32 output accumulator
-// rescaled by exp(m_old - m_new) whenever the max moves, normalised by l at
-// the end. One block per (query tile, batch element) loops over the K/V
-// tiles; that loop replaces the TPU's sequential grid dimension.
+// may use here. So this kernel tiles K and V and keeps an online softmax
+// (FA2): per query row a running max m and sum l, and a float32 output
+// accumulator rescaled by exp(m_old - m_new) whenever the max moves,
+// normalised by l at the end. One block per (query tile, batch element)
+// loops over the K/V tiles; that loop replaces the TPU's sequential grid
+// dimension.
 //
-// What bounds it on the card: this first version multiplies on the CUDA
-// cores in float32 (no tensor cores), so it is bound by shared-memory loads
-// feeding the FMAs, not by device memory (Q, K, V are read once per query
-// tile and O written once). Each thread keeps a small register tile (R rows
-// x 1 key for Q K^T, R rows x DC columns for P V) so that one shared-memory
-// load feeds several FMAs; K rows are padded by one float so the threads of
-// a warp, each on its own key, hit distinct banks. wgmma, TMA and warp
-// specialisation are later work.
+// What bounds it: 4 * B * N^2 * D flops against 4 * B * N * D elements of
+// device traffic. At the tensor cores' rates (float32 as 3xTF32, 495 / 3
+// TFLOP/s; bfloat16 989) that is operations at the N >= 512 float32 shapes
+// and at N=2048 and 8192 in bfloat16, bytes at the others. The design, with
+// the building blocks of attention_mma.cuh:
+//   * each warp owns 16 query rows; S = Q K^T of a key tile stays in
+//     registers in the mma accumulator layout, the online softmax runs there
+//     (quad shuffles for the row max and sum), and P goes straight back as
+//     the A operand of O += P V: no score tile in shared memory;
+//   * float32 multiplies by 3xTF32 on the tensor cores (float32-accurate);
+//     bfloat16 by bf16 mma with P rounded to bf16 before P V, as the TPU
+//     kernel rounds its probabilities to V's dtype;
+//   * the K and V tiles are double buffered with cp.async: tile j + 1 is in
+//     flight while tile j is multiplied;
+//   * at D >= 256 a 16 x D float32 output tile does not fit one warp's
+//     registers, so D is split across WD warps that share the 16 rows: each
+//     takes the Q K^T reduction over its D / WD slice, the slices are summed
+//     through shared memory (sum_over_slices, a fixed order, so every warp
+//     of the group gets the same S and the same softmax), and each warp then
+//     owns D / WD output columns of P V.
+// wgmma, TMA and warp specialisation are later work.
 //
 // Numerics: scores, softmax and the P V sums are float32; inputs float32 or
-// bfloat16; the output is written in Q's dtype. The TPU kernel casts the
-// NORMALISED probabilities to V's dtype before P V; an online softmax has no
-// normalised P before the end, so here P stays float32. In float32 the two
-// agree to rounding; in bfloat16 this kernel is the more exact one.
+// bfloat16; the output is written in Q's dtype. Exponentials are exp2 of
+// scores pre-multiplied by scale * log2(e).
 //
-// Layout: q, k, v are [B, N, D] with unit stride along D and arbitrary batch
-// and row strides (in elements), so the wrapper passes the strided views the
-// 1x1 qkv / kv convolutions produce (row stride 3C or 2C) without a copy. The
-// output is a contiguous [B, N, D] tensor the wrapper allocates.
+// Layout: q, k, v are [B, N, D] with unit stride along D and any batch and
+// row strides (in elements) whose byte sizes, and the base pointers, are
+// multiples of 16 (cp.async copies 16 bytes); the wrapper checks that. The
+// 1x1 qkv / kv convolutions' slabs (row stride 3C or 2C) pass without a
+// copy. The output is a contiguous [B, N, D] tensor the wrapper allocates.
 //
 // Training: with a non-null `lse` the kernel also writes each query row's
 // log-sum-exp m + log(l) of the scaled scores, float32 [B, N], which the
-// backward (flash_attention_bwd.cu) uses to recompute P. The sampling path
-// passes null and nothing else changes.
+// backward (flash_attention_bwd.cu) uses to recompute P. Nothing else
+// changes, so O is the same bit for bit with and without it.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace srewd;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long q_b, q_r, k_b, k_r, v_b, v_r;
 };
 
-// Shared memory (floats): Qs[BQ][D] | Ks[BK][D+1] | Vs[BK][D] | S[BQ][BK] | m, l, alpha [BQ]
-template <int D, int BQ, int BK>
-struct Smem {
-  static constexpr int kQ = BQ * D;
-  static constexpr int kK = BK * (D + 1);
-  static constexpr int kV = BK * D;
-  static constexpr int kS = BQ * BK;
-  static constexpr int kFloats = kQ + kK + kV + kS + 3 * BQ;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
+// WM warps along query rows (BQ = 16 WM), WD warps along D, BK keys a tile.
+template <typename T, int D, int WM, int WD, int BK>
+struct Fwd {
+  static constexpr int kWarps = WM * WD;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int BQ = 16 * WM;
+  static constexpr int DW = D / WD;  // output columns of a warp
+  static constexpr int NS = BK / 8;  // score tiles of a warp
+  static constexpr int NO = DW / 8;  // output tiles of a warp
+  static constexpr int LD = Pitch<T, D>::value;
+  // shared memory: Q [BQ][LD] | K [2][BK][LD] | V [2][BK][LD] | slice sums
+  static constexpr size_t kQ = sizeof(T) * BQ * LD;
+  static constexpr size_t kKV = sizeof(T) * BK * LD;
+  static constexpr size_t kRed = WD > 1 ? sizeof(float) * kWarps * NS * 4 * 32 : 0;
+  static constexpr size_t kBytes = kQ + 4 * kKV + kRed;
 };
 
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int n, Strides st, float scale) {
-  static_assert(kThreads % BK == 0, "BK must divide the block");
-  static_assert((BQ * BK) % kThreads == 0, "score tile must split evenly");
-  constexpr int TD = D < kThreads ? D : kThreads;  // threads along D in P V
-  constexpr int TR = kThreads / TD;                 // threads along rows in P V
-  constexpr int DC = D / TD;                        // columns per thread
-  constexpr int RO = BQ / TR;                       // output rows per thread
-  constexpr int RS = BQ * BK / kThreads;            // score rows per thread
-  constexpr int SR = kThreads / BK;                 // row step in the score tile
-  constexpr int kWarps = kThreads / 32;
-  static_assert(BQ % TR == 0 && BQ % kWarps == 0, "bad tile");
+template <typename T, int D, int WM, int WD, int BK>
+__global__ void __launch_bounds__(Fwd<T, D, WM, WD, BK>::kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, int n, Strides st, float scale) {
+  using C = Fwd<T, D, WM, WD, BK>;
+  constexpr int LD = C::LD, NS = C::NS, NO = C::NO, DW = C::DW, NT = C::kThreads;
 
-  extern __shared__ float smem[];
-  using S_ = Smem<D, BQ, BK>;
-  float* Qs = smem;
-  float* Ks = Qs + S_::kQ;
-  float* Vs = Ks + S_::kK;
-  float* Ss = Vs + S_::kV;
-  float* row_m = Ss + S_::kS;
-  float* row_l = row_m + BQ;
-  float* row_a = row_l + BQ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = reinterpret_cast<T*>(smem + C::kQ);
+  T* Vs = reinterpret_cast<T*>(smem + C::kQ + 2 * C::kKV);
+  float* red = reinterpret_cast<float*>(smem + C::kQ + 4 * C::kKV);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / WD, wd = warp % WD;
+  const int t = lane & 3;
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-
-  const T* qb = q + b * st.q_b;
+  const int q0 = blockIdx.x * C::BQ;
   const T* kb = k + b * st.k_b;
   const T* vb = v + b * st.v_b;
+  const int tiles = (n + BK - 1) / BK;
 
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int row = q0 + r;
-    Qs[idx] = row < n ? to_f32(qb[row * st.q_r + c]) : 0.f;
-  }
-  if (tid < BQ) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
-  }
+  load_tile_async<T, D, C::BQ, NT>(Qs, q + b * st.q_b, st.q_r, q0, n);
+  load_tile_async<T, D, BK, NT>(Ks, kb, st.k_r, 0, n);
+  load_tile_async<T, D, BK, NT>(Vs, vb, st.v_r, 0, n);
+  cp_async_commit();
 
-  float acc[RO][DC];
-#pragma unroll
-  for (int r = 0; r < RO; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
+  float acc[NO][4];
+  zero(acc);
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled log2 scores
+  float l[2] = {0.f, 0.f};              // this thread's part of the running sum
+  const float sl2 = scale * kLog2e;
+  const T* qw = Qs + wm * 16 * LD + wd * DW;
 
-  const int o_col = tid % TD;  // first output column of this thread
-  const int o_row = tid / TD;  // first output row of this thread
-  const int s_col = tid % BK;  // key of this thread in the score tile
-  const int s_row = tid / BK;  // first query row of this thread in the score tile
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // previous tile's P V done (and Q / stats loaded)
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const int key = k0 + r;
-      const bool ok = key < n;
-      Ks[r * (D + 1) + c] = ok ? to_f32(kb[key * st.k_r + c]) : 0.f;
-      Vs[idx] = ok ? to_f32(vb[key * st.v_r + c]) : 0.f;
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      const int s = (it + 1) & 1;
+      load_tile_async<T, D, BK, NT>(Ks + s * BK * LD, kb, st.k_r, (it + 1) * BK, n);
+      load_tile_async<T, D, BK, NT>(Vs + s * BK * LD, vb, st.v_r, (it + 1) * BK, n);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and tile `it` have landed
     __syncthreads();
+    const T* ks = Ks + (it & 1) * BK * LD;
+    const T* vs = Vs + (it & 1) * BK * LD;
 
-    // S = scale * Q K^T for this tile, RS rows x 1 key per thread
-    {
-      float s[RS];
-#pragma unroll
-      for (int r = 0; r < RS; ++r) s[r] = 0.f;
-      const float* kr = Ks + s_col * (D + 1);
-#pragma unroll 4
-      for (int c = 0; c < D; ++c) {
-        const float kv = kr[c];
-#pragma unroll
-        for (int r = 0; r < RS; ++r) s[r] = fmaf(Qs[(s_row + r * SR) * D + c], kv, s[r]);
-      }
-      const bool valid = k0 + s_col < n;
-#pragma unroll
-      for (int r = 0; r < RS; ++r)
-        Ss[(s_row + r * SR) * BK + s_col] = valid ? s[r] * scale : -INFINITY;
-    }
-    __syncthreads();
+    float s[NS][4];
+    zero(s);
+    gemm_nk<T, NS, DW>(s, qw, LD, ks + wd * DW, LD);
+    sum_over_slices<NS, WD>(s, red);
 
-    // online softmax: one warp per row, lanes across the tile's keys
-    for (int r = warp; r < BQ; r += kWarps) {
-      float* sr = Ss + r * BK;
-      float mx = -INFINITY;
-      for (int j = lane; j < BK; j += 32) mx = fmaxf(mx, sr[j]);
+    // online softmax on the registers: rows g (i = 0, 1) and g + 8 (i = 2, 3)
+    const int k0 = it * BK;
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float p = expf(sr[j] - m_new);
-        sr[j] = p;
-        sum += p;
-      }
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile
-        row_a[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + 8 * j + 2 * t + (i & 1);
+        s[j][i] = key < n ? s[j][i] * sl2 : -INFINITY;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
       }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      alpha[h] = exp2f(m[h] - mx[h]);  // 0 on the first tile
+      m[h] = mx[h];
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = exp2f(s[j][i] - m[i >> 1]);
+        sum[i >> 1] += s[j][i];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
 
-    // O = alpha * O + P V, RO rows x DC columns per thread
-#pragma unroll
-    for (int r = 0; r < RO; ++r) {
-      const float a = row_a[o_row + r * TR];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= a;
-    }
-    for (int j = 0; j < BK; ++j) {
-      float vv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = Vs[j * D + o_col + c * TD];
-#pragma unroll
-      for (int r = 0; r < RO; ++r) {
-        const float p = Ss[(o_row + r * TR) * BK + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
-      }
-    }
+    gemm_acc_kn<T, NO, NS>(acc, s, vs + wd * DW, LD, alpha[0], alpha[1]);  // O = alpha O + P V
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-#pragma unroll
-  for (int r = 0; r < RO; ++r) {
-    const int row = q0 + o_row + r * TR;
-    if (row >= n) continue;
-    const float inv_l = 1.f / row_l[o_row + r * TR];
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      store_as(o + ((long long)b * n + row) * D + o_col + c * TD, acc[r][c] * inv_l);
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  const int row0 = q0 + wm * 16;
+  store_rows<T, NO>(o + (long long)b * n * D, acc, D, row0, wd * DW, n, 1.f / l0, 1.f / l1);
+  if (lse != nullptr && wd == 0 && t == 0) {
+    const int g = lane >> 2;
+    if (row0 + g < n) lse[(long long)b * n + row0 + g] = (m[0] + log2f(l0)) * kLn2;
+    if (row0 + g + 8 < n) lse[(long long)b * n + row0 + g + 8] = (m[1] + log2f(l1)) * kLn2;
   }
-  if (lse != nullptr && tid < BQ && q0 + tid < n)
-    lse[(long long)b * n + q0 + tid] = row_m[tid] + logf(row_l[tid]);
 }
 
-template <typename T, int D, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int b, int n, Strides st, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D, BQ, BK>;
-  const size_t bytes = Smem<D, BQ, BK>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <typename T, int D, int WM, int WD, int BK>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int n, Strides st, float scale, cudaStream_t stream) {
+  using C = Fwd<T, D, WM, WD, BK>;
+  auto kernel = flash_fwd_kernel<T, D, WM, WD, BK>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::kBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + BQ - 1) / BQ, b);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, n, st, scale);
+  dim3 grid((n + C::BQ - 1) / C::BQ, b);
+  kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, n, st, scale);
   return cudaGetLastError();
 }
 
-// Tile sizes per head width, chosen so Q, K, V, the score tile and the row
-// statistics fit the dynamic shared-memory limit (largest: D=512, 166 KB).
+// Tiles per head width (warps along rows WM, along D WD, keys a tile BK),
+// the same for both dtypes. Float32 shared memory in brackets.
+//   D=64:  4 x 1, BK 64 (85 KB): a warp holds 16 x 64 of O and of S, two
+//          blocks per SM; N=8192 gives 128 blocks per sample.
+//   D=128: 4 x 1, BK 32 (99 KB): 16 x 128 of O in a warp's registers, two
+//          blocks per SM; N=2048 at B=8 gives 256 blocks.
+//   D=256: 1 x 4, BK 32 (154 KB): O split 4 ways (64 columns a warp), 16
+//          query rows a block so N=512 at B=8 gives 256 blocks.
+//   D=512: 1 x 8, BK 16 (169 KB): O split 8 ways; double-buffered K and V
+//          at 16 keys already take 129 KB. N=512 at B=8 gives 256 blocks.
 template <typename T>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o,
-                     float* lse, int b, int n, Strides st, float scale, cudaStream_t stream) {
+cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o, float* lse,
+                     int b, int n, Strides st, float scale, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64, 64, 64>(q, k, v, o, lse, b, n, st, scale, stream);
-    case 128: return launch<T, 128, 32, 64>(q, k, v, o, lse, b, n, st, scale, stream);
-    case 256: return launch<T, 256, 32, 32>(q, k, v, o, lse, b, n, st, scale, stream);
-    case 512: return launch<T, 512, 16, 32>(q, k, v, o, lse, b, n, st, scale, stream);
+    case 64: return launch<T, 64, 4, 1, 64>(q, k, v, o, lse, b, n, st, scale, stream);
+    case 128: return launch<T, 128, 4, 1, 32>(q, k, v, o, lse, b, n, st, scale, stream);
+    case 256: return launch<T, 256, 1, 4, 32>(q, k, v, o, lse, b, n, st, scale, stream);
+    case 512: return launch<T, 512, 1, 8, 16>(q, k, v, o, lse, b, n, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

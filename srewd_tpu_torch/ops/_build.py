@@ -4,17 +4,26 @@ Route (b) of the port's kernel rules: `nvcc` compiles `csrc/<name>.cu` into
 a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes), and ctypes loads it. The build runs on first
 use, into `build/srewd_tpu_torch/` beside the package (gitignored), and the
-library's name carries a hash of the source and flags, so an edited source
-is rebuilt and a stale library is never loaded. A failed build raises with
-nvcc's stderr. `build_all` starts one nvcc per source at once, so the
-sources build in parallel.
+library's name carries a hash of the source, of every header in `csrc/` and
+of the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. A failed build raises with nvcc's stderr. `build_all`
+starts one nvcc per source at once, so the sources build in parallel.
+
+nvcc runs with `-Xptxas -v`; its report (registers, shared memory and spill
+bytes of every kernel instantiation) is kept beside the library as
+`<library>.ptxas.txt` and read back by `ptxas_report`. `sass_mma_counts`
+counts the tensor-core instructions (HMMA) of each kernel in the built
+library's SASS, where `cuobjdump` can be found.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
+import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,28 +34,39 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "srewd_tpu_torch")
 SOURCES = ("flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _libs: dict = {}
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def _find(tool: str):
+    """A CUDA toolkit program, on PATH or in the toolkit's bin/; None if absent."""
+    for cand in (shutil.which(tool), os.path.join("/usr/local/cuda/bin", tool)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on the machine with the card")
+    return None
+
+
+def _nvcc() -> str:
+    path = _find("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on the machine with the card")
+    return path
 
 
 def _paths(name: str) -> tuple:
-    """(source, library path) of csrc/<name>.cu."""
+    """(source, library path) of csrc/<name>.cu; the hash covers the source,
+    every csrc/*.cuh header and the flags."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     if not os.path.exists(src):
         raise FileNotFoundError(src)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -66,9 +86,11 @@ def _finish(name: str, job) -> None:
     if job is None:
         return
     proc, tmp, lib_path = job
-    _, err = proc.communicate()
+    out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {name}:\n{err}")
+    with open(f"{lib_path}.ptxas.txt", "w") as f:
+        f.write(out + err)
     os.replace(tmp, lib_path)
 
 
@@ -99,3 +121,79 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _libs[name] = lib
         return lib
+
+
+def _demangle(names: list) -> dict:
+    """{mangled: readable} through cu++filt / c++filt where one is found."""
+    tool = _find("cu++filt") or _find("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def parse_ptxas(text: str) -> list:
+    """[{kernel, registers, smem_static, spill_stores, spill_loads, stack}] from
+    the text of `nvcc -Xptxas -v` (mangled kernel names)."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "smem_static": 0,
+                   "spill_stores": None, "spill_loads": None, "stack": None}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem_static"] = int(s.group(1)) if s else 0
+    return rows
+
+
+def ptxas_report(name: str) -> list:
+    """parse_ptxas of csrc/<name>.cu's kept report (build first), with each
+    kernel's readable name beside the mangled one."""
+    with open(f"{_paths(name)[1]}.ptxas.txt") as f:
+        rows = parse_ptxas(f.read())
+    readable = _demangle([r["kernel"] for r in rows])
+    for r in rows:
+        r["name"] = readable[r["kernel"]]
+    return rows
+
+
+def _cuobjdump():
+    """The toolkit's cuobjdump, else the copy Triton's package carries; None if absent."""
+    tool = _find("cuobjdump")
+    spec = importlib.util.find_spec("triton")
+    if tool is None and spec is not None and spec.submodule_search_locations:
+        cand = os.path.join(list(spec.submodule_search_locations)[0], "backends", "nvidia",
+                            "bin", "cuobjdump")
+        tool = cand if os.path.exists(cand) else None
+    return tool
+
+
+def sass_mma_counts(name: str):
+    """{mangled kernel: count of HMMA instructions in its SASS} of the built
+    csrc/<name>.cu, or None where no cuobjdump is found."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", _paths(name)[1]], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    return counts

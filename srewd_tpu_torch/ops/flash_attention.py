@@ -8,7 +8,9 @@ csrc/flash_attention.cu and csrc/flash_attention_bwd.cu; both are built by
 ops/_build.py and bound with ctypes.
 
 The wrappers pass q, k and v as strided views: unit stride along D, any
-batch and row stride. The 1x1 qkv (self-attention, row stride 3C) and kv
+batch and row stride whose size in bytes, like the data pointer, is a
+multiple of 16 (the kernels copy tiles with 16-byte cp.async; `_check_qkv`
+raises otherwise). The 1x1 qkv (self-attention, row stride 3C) and kv
 (cross-attention, row stride 2C) convolutions therefore feed the kernels
 without a copy, and autograd's view handling routes the gradients of the
 views back into the convolutions' output slabs.
@@ -124,6 +126,21 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     for tname, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(2) != 1:
             raise ValueError(f"{tname} needs unit stride along D")
+        _check_aligned(name, tname, t)
+
+
+def _check_aligned(name: str, tname: str, t: torch.Tensor) -> None:
+    """The kernels copy rows into shared memory 16 bytes at a time
+    (cp.async): the data pointer and the batch and row strides, in bytes,
+    must be multiples of 16. No copy is made for a tensor that is not."""
+    isz = t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {tname}'s data pointer is not 16-byte aligned "
+                         f"(storage offset {t.storage_offset()} elements)")
+    for dim in (0, 1):
+        if (t.stride(dim) * isz) % 16:
+            raise ValueError(f"{name}: {tname}'s stride along dim {dim} is {t.stride(dim)} "
+                             f"elements, not a multiple of 16 bytes")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -180,6 +197,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = o.to(q.dtype).contiguous()
     do = do.to(q.dtype).contiguous()
     lse = lse.contiguous()
+    _check_aligned("flash_attention_backward", "do", do)
     lib = _bwd_library()
     dq = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
     dk = torch.empty_like(dq)

@@ -22,10 +22,12 @@ from srewd_tpu.ops.flash_attention import flash_attention as jflash
 from srewd_tpu.ops.pallas_fused import pallas_gn_swish_interpret
 from srewd_tpu_torch.diffusion import gaussian as tgauss
 from srewd_tpu_torch.diffusion.schedule import Schedule as TSchedule
+from srewd_tpu_torch.ops import _build
 from srewd_tpu_torch.ops import finite_diff as tfd
 from srewd_tpu_torch.ops import reference_ops, resize as tresize, use_plain
 from srewd_tpu_torch.ops import wavelets as twave
-from srewd_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+from srewd_tpu_torch.ops.flash_attention import (SUPPORTED_D, _check_qkv, attention_reference,
+                                                 flash_attention)
 from srewd_tpu_torch.ops.fused_groupnorm import gn_swish, gn_swish_reference
 
 # f32 elementwise ops and short sums: both sides round the same float32
@@ -168,3 +170,68 @@ def test_plain_routing_rules():
         assert use_plain(cpu)
     with pytest.raises(RuntimeError, match="no kernel for device"):
         use_plain(torch.zeros(1, device="meta"))
+
+
+# The kernels copy q, k and v into shared memory 16 bytes at a time
+# (cp.async): `_check_qkv` takes the main path's slab views and refuses a
+# misaligned pointer or stride, with no copy.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", SUPPORTED_D)
+def test_check_qkv_takes_the_main_path_slabs(d, dtype):
+    qkv = torch.zeros(2, 3, 3 * d, dtype=dtype)  # SelfAttention's 1x1 qkv output
+    _check_qkv("t", qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+    q, kv = torch.zeros(2, 3, d, dtype=dtype), torch.zeros(2, 3, 2 * d, dtype=dtype)
+    _check_qkv("t", q, kv[..., :d], kv[..., d:])  # CrossAttention's q and kv slab
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_qkv_refuses_misaligned_views(dtype):
+    d = 64
+    ok = torch.zeros(2, 3, d, dtype=dtype)
+    shifted = torch.zeros(2 * 3 * d + 1, dtype=dtype)[1:].view(2, 3, d)  # one element off
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        _check_qkv("t", ok, shifted, ok)
+    odd_rows = torch.zeros(2, 3, d + 1, dtype=dtype)[..., :d]  # row stride d + 1
+    with pytest.raises(ValueError, match="not a multiple of 16 bytes"):
+        _check_qkv("t", odd_rows, ok, ok)
+
+
+def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
+    # an edited csrc/*.cuh must give a new library name, never a stale load
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    before = _build._paths("k")[1]
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert _build._paths("k")[1] != before
+
+
+def test_parse_ptxas_report():
+    text = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3barPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers, 1024 bytes smem, 360 bytes cmem[0]
+"""
+    assert _build.parse_ptxas(text) == [
+        {"kernel": "_Z3fooPf", "registers": 168, "smem_static": 0, "spill_stores": 12,
+         "spill_loads": 8, "stack": 0},
+        {"kernel": "_Z3barPf", "registers": 32, "smem_static": 1024, "spill_stores": 0,
+         "spill_loads": 0, "stack": 0},
+    ]
+
+
+def test_chip_smoke_kernel_names():
+    import chip_smoke
+
+    assert chip_smoke.kernel_name(
+        "void <unnamed>::flash_fwd_kernel<float, (int)64, (int)4, (int)1, (int)64>"
+        "(float const*, float*, int, <unnamed>::Strides, float)"
+    ) == "flash_fwd_kernel<float, (int)64, (int)4, (int)1, (int)64>"
+    assert chip_smoke.kernel_name(
+        "void (anonymous namespace)::flash_bwd_delta_kernel<float>(float const*, float*, int)"
+    ) == "flash_bwd_delta_kernel<float>"
