@@ -7,7 +7,9 @@ chip_smoke.py.
 """
 
 import math
+import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +30,8 @@ from srewd_tpu_torch.ops import reference_ops, resize as tresize, use_plain
 from srewd_tpu_torch.ops import wavelets as twave
 from srewd_tpu_torch.ops.flash_attention import (SUPPORTED_D, _check_qkv, attention_reference,
                                                  flash_attention)
-from srewd_tpu_torch.ops.fused_groupnorm import gn_swish, gn_swish_reference
+from srewd_tpu_torch.ops.fused_groupnorm import (
+    MAX_CLUSTER, MAX_THREADS, SMEM_LIMIT, gn_plan, gn_swish, gn_swish_reference)
 
 # f32 elementwise ops and short sums: both sides round the same float32
 # operations in a possibly different order, a few ulp of O(1) values.
@@ -149,6 +152,72 @@ def test_gn_swish_plain_matches_jax_kernel_bf16(swish):
     assert np.all(np.abs(got - want) <= ulp), np.max(np.abs(got - want) / ulp)
 
 
+def test_gn_swish_plain_stats_match_jax():
+    # the statistics the forward keeps for the backward: _pure_gn_swish's
+    # float32 mean and E[x^2] - E[x]^2, as rsqrt(var + eps)
+    shape, groups = (2, 8, 16, 96), 32
+    x = _rand(shape, 15) * 3.0 + 1.0
+    w, b = _rand((96,), 16), _rand((96,), 17)
+    x32 = jnp.asarray(x).reshape(2, 8 * 16, groups, 96 // groups)
+    mean = jnp.mean(x32, axis=(1, 3))
+    var = jnp.mean(jnp.square(x32), axis=(1, 3)) - jnp.square(mean)
+    _, got_mean, got_rstd = gn_swish_reference(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), groups, 1e-5, True,
+        return_stats=True)
+    assert got_mean.shape == got_rstd.shape == (2, groups) and got_mean.dtype == torch.float32
+    np.testing.assert_allclose(got_mean.numpy(), np.asarray(mean), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_rstd.numpy(), np.asarray(jax.lax.rsqrt(var + 1e-5)),
+                               rtol=1e-6, atol=1e-6)
+
+
+# GroupNorm inputs [B, H, W, C] of one full-width phydiff UNet call at the
+# sampling batch (8); training runs the same maps at batch 4.
+GN_MAIN_PATH_SHAPES = [
+    (8, 8, 16, 512), (8, 8, 16, 1024), (8, 16, 32, 256), (8, 16, 32, 512), (8, 16, 32, 768),
+    (8, 16, 32, 1024), (8, 32, 64, 128), (8, 32, 64, 256), (8, 32, 64, 384), (8, 32, 64, 512),
+    (8, 32, 64, 768), (8, 64, 128, 64), (8, 64, 128, 128), (8, 64, 128, 192),
+    (8, 64, 128, 256), (8, 64, 128, 384), (8, 128, 256, 64), (8, 128, 256, 128),
+    (8, 128, 256, 192),
+]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [8, 4])
+def test_gn_plan_tiles_every_main_path_shape(batch, dtype, backward):
+    isz = torch.empty((), dtype=dtype).element_size()
+    for shape in GN_MAIN_PATH_SHAPES:
+        b, h, w, c = (batch, *shape[1:])
+        p = gn_plan((b, h, w, c), 32, dtype, backward)
+        cg = c // 32
+        # slices: whole groups that tile C exactly, 16-byte row segments of at
+        # least one 32-byte sector, one channel per thread's sums
+        assert p.slice_channels % cg == 0 and c % p.slice_channels == 0
+        assert p.slices == c // p.slice_channels
+        seg = p.slice_channels * isz
+        assert seg % 16 == 0 and seg >= 32, (shape, p)
+        assert p.threads % p.slice_channels == 0 and p.threads <= MAX_THREADS
+        # rows: the cluster's blocks tile HW exactly, none empty
+        assert p.rows_per_cta * p.cluster >= h * w > p.rows_per_cta * (p.cluster - 1)
+        assert 1 <= p.cluster <= MAX_CLUSTER and p.cluster & (p.cluster - 1) == 0
+        # x's slab (the backward also dy's) of rows x slice, 16-byte rounded,
+        # then the float32 scratch
+        slab = -(-p.rows_per_cta * seg // 16) * 16
+        assert p.bytes_per_cta == (2 if backward else 1) * slab + 4 * (
+            2 * p.threads + 10 * p.slice_channels)
+        assert p.bytes_per_cta <= SMEM_LIMIT, (shape, p)
+        assert p.blocks == b * p.slices * p.cluster
+
+
+def test_gn_plan_refuses_what_no_cluster_holds():
+    # 1024x1024 float32 maps of 64 channels: the narrowest slice (8 channels,
+    # one 32-byte sector) is 32 MiB a sample, far past 16 x 227 KiB
+    with pytest.raises(ValueError, match="16 CTAs x 227 KiB"):
+        gn_plan((1, 1024, 1024, 64), 32, torch.float32)
+    with pytest.raises(ValueError, match="not a multiple"):
+        gn_plan((1, 8, 8, 60), 32, torch.float32)
+
+
 def test_wrappers_take_plain_version_on_cpu():
     flash_attention.launches = gn_swish.launches = 0
     attention_reference.calls = gn_swish_reference.calls = 0
@@ -196,6 +265,13 @@ def test_check_qkv_refuses_misaligned_views(dtype):
         _check_qkv("t", odd_rows, ok, ok)
 
 
+def test_build_sources_are_the_three_kernels():
+    # K1, K2 and K3 (forward and backward) are built from csrc/ by nvcc
+    assert _build.SOURCES == ("flash_attention", "flash_attention_bwd", "gn_swish")
+    for name in _build.SOURCES:
+        assert os.path.exists(os.path.join(_build.CSRC_DIR, f"{name}.cu"))
+
+
 def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
     # an edited csrc/*.cuh must give a new library name, never a stale load
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
@@ -235,3 +311,16 @@ def test_chip_smoke_kernel_names():
     assert chip_smoke.kernel_name(
         "void (anonymous namespace)::flash_bwd_delta_kernel<float>(float const*, float*, int)"
     ) == "flash_bwd_delta_kernel<float>"
+    gn = [chip_smoke.kernel_name(n) for n in (
+        "void <unnamed>::gn_fwd_kernel<__nv_bfloat16>(const T1 *, const T1 *, const T1 *, T1 *, "
+        "float *, float *, int, int, int, int, int, int, float, int)",
+        "void <unnamed>::gn_bwd_kernel<float>(const T1 *, const T1 *, const T1 *, const T1 *, "
+        "const float *, const float *, T1 *, float *, int, int, int, int, int, int)",
+        "<unnamed>::gn_wb_kernel(const float *, float *, float *, int, int)")]
+    assert gn == ["gn_fwd_kernel<__nv_bfloat16>", "gn_bwd_kernel<float>", "gn_wb_kernel"]
+    # GroupNorm has no product: phase 2 exempts its kernels (and K2's Δ) from
+    # the tensor-core check, and holds every other K1/K2 kernel to it
+    assert not any(chip_smoke.needs_hmma(n) for n in gn)
+    assert not chip_smoke.needs_hmma("flash_bwd_delta_kernel<float>")
+    assert chip_smoke.needs_hmma("flash_fwd_kernel<float, (int)64, (int)4, (int)1, (int)64>")
+    assert chip_smoke.needs_hmma("flash_bwd_dq_kernel<float, (int)128>")

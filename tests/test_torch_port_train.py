@@ -43,7 +43,8 @@ from srewd_tpu_torch.models.factory import build_model
 from srewd_tpu_torch.ops.flash_attention import (
     FlashAttentionFn, attention_backward_reference, attention_reference,
     flash_attention_backward)
-from srewd_tpu_torch.ops.fused_groupnorm import GNSwishFn, gn_swish_reference
+from srewd_tpu_torch.ops.fused_groupnorm import (
+    GNSwishFn, gn_swish, gn_swish_backward, gn_swish_backward_reference, gn_swish_reference)
 from srewd_tpu_torch.ops.ssim import ssim
 from srewd_tpu_torch.training.checkpoint import CheckpointManager
 from srewd_tpu_torch.training.metrics import ValidationMetrics, create_metric_dict
@@ -117,12 +118,59 @@ def test_gn_swish_grads_match_jax_vjp(swish):
     _, vjp = jax.vjp(lambda a, s, c: _pure_gn_swish(a, s, c, 8, 1e-5, swish), x, w, bias)
     want = vjp(g)
     ins = [torch.from_numpy(a).requires_grad_() for a in (x, w, bias)]
-    gn_swish_reference.calls = 0
+    gn_swish_reference.calls = gn_swish_backward_reference.calls = 0
+    gn_swish.launches = gn_swish_backward.launches = 0
     y = GNSwishFn.apply(*ins, 8, 1e-5, swish)
     got = torch.autograd.grad(y, ins, torch.from_numpy(g))
-    assert gn_swish_reference.calls == 1  # the backward's math does not count
+    # a CPU tensor takes both plain versions, each once; no kernel launches
+    assert gn_swish_reference.calls == 1 and gn_swish_backward_reference.calls == 1
+    assert gn_swish.launches == 0 and gn_swish_backward.launches == 0
     for gt, wt in zip(got, want):
         np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=1e-4, atol=1e-4)
+
+
+def _bf16_values(a):
+    """a rounded to bfloat16, as float32 numpy."""
+    return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("swish", [True, False])
+def test_gn_swish_backward_reference_matches_jax_vjp(swish, dtype):
+    # the plain backward the kernel is held to: dx, dweight, dbias against
+    # jax.vjp of _pure_gn_swish. bfloat16: the port in bf16 against JAX in
+    # float32 on the same bf16-valued inputs, within two bf16 ulps of the
+    # largest value (the Swish's gradient chain rounds in bf16; JAX's own bf16
+    # VJP rounds at other places and is itself ~2 ulps off the float32 one)
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal((2, 8, 16, 64)) * 3 + 1).astype(np.float32)
+    w = rng.standard_normal(64).astype(np.float32)
+    bias = rng.standard_normal(64).astype(np.float32)
+    g = rng.standard_normal((2, 8, 16, 64)).astype(np.float32)
+    arrays = (x, w, bias, g) if dtype == torch.float32 else tuple(
+        _bf16_values(a) for a in (x, w, bias, g))
+    _, vjp = jax.vjp(lambda a, s, c: _pure_gn_swish(a, s, c, 32, 1e-5, swish), *arrays[:3])
+    want = [np.asarray(t) for t in vjp(arrays[3])]
+    ins = [torch.from_numpy(a).to(dtype) for a in arrays]
+    gn_swish_backward_reference.calls = 0
+    got = gn_swish_backward_reference(ins[0], ins[3], ins[1], ins[2], 32, 1e-5, swish)
+    assert gn_swish_backward_reference.calls == 1
+    for gt, wt, name in zip(got, want, ("dx", "dweight", "dbias")):
+        assert gt.dtype == dtype
+        gt = gt.float().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(gt, wt, rtol=1e-4, atol=1e-4, err_msg=name)
+        else:
+            tol = 2.0 * 2.0 ** (np.floor(np.log2(np.abs(wt).max())) - 7)
+            assert np.abs(gt - wt).max() <= tol, (name, np.abs(gt - wt).max(), tol)
+
+
+def test_gn_swish_backward_refuses_cpu_tensors():
+    x = torch.zeros(1, 4, 4, 64)
+    w = torch.ones(64)
+    stats = torch.zeros(1, 32)
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        gn_swish_backward(x, x, w, w, stats, stats, 32, True)
 
 
 # ----------------------------------------------------------------------- draws
