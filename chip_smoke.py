@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's phydiff sampling and training paths on one CUDA
-card and check them.
+"""Drive the PyTorch port's sampling, training and pretraining paths of
+every residual architecture on one CUDA card and check them.
 
-    python3 chip_smoke.py              # the smoke run, phases 1-7
+    python3 chip_smoke.py              # the smoke run, phases 1-10
     python3 chip_smoke.py --profile    # phases 1-2, then the UNet profile
+    python3 chip_smoke.py --stress N   # phases 1-6, then steps 7 and 10 N times each
 
-Phases, one JSON line each; any failure exits non-zero before the result:
+Phases, one JSON line each (`t_sec`: seconds since the start); any failure
+exits non-zero before the result:
   1. device   — a CUDA card must be present (else exit 2, no result).
   2. build    — nvcc builds csrc/flash_attention.cu (K1),
                 csrc/flash_attention_bwd.cu (K2) and csrc/gn_swish.cu (K3
@@ -17,8 +19,13 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 which must be > 0 for every K1 and K2 kernel but Δ's (the GN
                 kernels have no product and use none by design: NO_HMMA).
   3. kernels  — each kernel against its plain PyTorch version at every shape
-                one full-width phydiff UNet call gives it (found by hooks on
-                one forward pass), float32 (TF32 off) and bfloat16, in the
+                one full-width UNet call of phydiff, resdiff, srdiff or
+                physrdiff gives it (found by hooks on one call of each
+                arch's sampling chain; the `shapes` line says how many shapes
+                the other three add to phydiff's, whose call counts weigh
+                the totals; a `unet_call` line per arch gives the host ms of
+                one UNet call at batch 8, float32 and bfloat16), float32
+                (TF32 off) and bfloat16, in the
                 main path's layouts, with median CUDA-event times of the
                 kernel, the plain version and, where one exists, the one
                 PyTorch call that computes the same function (library_ms:
@@ -68,12 +75,55 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 relative difference <= 1e-5, every parameter's gradient
                 relative RMSE <= 1e-3 (leaves whose gradient norm is under
                 1e-6 of the largest: absolute RMSE against the largest norm).
-  --profile — instead of 3-7: per dtype, one full-width UNet call by host
+  8. pretrain — `srewd_tpu_torch.pretrain.main` for one epoch of the shipped
+                RRDBNet (nf 64, 17 blocks, batch 32, amsgrad) and SimpleCNN
+                (batch 128) configs on a 7-day synthetic tree: losses and
+                Kelvin metrics finite, the `pretrain_<name>_E0` checkpoint
+                reloads into a fresh encoder, RRDB steps/s; no kernel and no
+                plain version runs (the encoders are convolutions).
+  9. archs    — resdiff (SimpleCNN prediction as condition), srdiff and
+                physrdiff (RRDB), each shipped config at full width on phase
+                8's encoders: `sample.main` with DPM-25 at batch 8 over 16
+                fields, float32 and bfloat16 (physrdiff also over 8 fields
+                as a float32 ensemble of 2, which writes sr_std/): fields
+                finite, in a
+                Kelvin range, K1 and K3 launched exactly (UNet calls) x
+                (their calls per UNet call, phase 3) times, no backward
+                kernel, no plain version. Then `train.main` of srdiff
+                (unlocked RRDB), physrdiff (locked) and resdiff for 5 steps
+                at batch 4 with EMA and a resume from step 3 that repeats
+                steps 4-5; the first step of train.main's trainer must leave
+                a finite gradient on every UNet parameter, nonzero but for
+                DEAD_RELU_OK's, and on every encoder parameter when
+                unlocked, none when locked (steps/s: 5 more steps on that
+                trainer after the run); after it `sample.main -m
+                <step-5 checkpoint> --use-ema` (DPM-5) must load the EMA
+                (physrdiff, trained with EMA) or warn and take the raw
+                weights (srdiff and resdiff, trained without).
+                K1, K2, K3 and its backward launched, the plain versions
+                never.
+ 10. compare_archs — full-width physrdiff, batch 2, the same weights,
+                cuDNN untimed as the sample CLI meets it: DPM-10
+                generate_sr with the kernels against
+                `reference_ops()` (relative RMSE of the residual <= 1e-3),
+                and one training step with the RRDB unlocked (loss <= 1e-5
+                relative, every UNet and encoder gradient <= 1e-3 relative
+                RMSE); the kernel sides launch K1 and K3 (and, in the step,
+                K2 and the K3 backward) and call no plain version, the
+                plain sides launch no kernel.
+  --profile — instead of 3-10: per dtype, one full-width UNet call by host
                 clock and by torch.profiler's device time per kernel, the card's
                 idle share, and one DDIM-50 generate_sr (see profile_unet).
+  --stress N — instead of 7-10, after phases 1-6 as in the smoke run:
+                phase 7's and phase 10's training steps N times each with
+                the cuDNN settings phase 6 leaves, every kernel
+                launch repeated (bit-identical) and held against its plain
+                version call by call, odd repeats in NaN-poisoned memory
+                (see stress_step).
 Then the kernels' summary line, the card's name and power limit, and the
 result line. In the summary line, `launches` counts the kernel's launches in
-the first run of phase 6 (`launches_sample`: in phase 4); `ms`, `plain_ms`,
+the main-path runs, each counted from 0: phase 4, the first run of phase 6,
+phase 8 and phase 9 (`launches_by_phase` splits them); `ms`, `plain_ms`,
 `library_ms` and `bound_ms` are device time per main-path unit, float32:
 one UNet call at batch 8 for K1 and K3, one training step at batch 4 for K2
 and the K3 backward (per shape: calls x the median time of one call); K3's
@@ -107,6 +157,7 @@ Tolerances of phase 3 (max abs error against the plain version):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -123,7 +174,30 @@ CONFIG = os.path.join(
     REPO, "configs", "experiment_configs", "phydiff", "resdiff+physics_ddim50_eval.json")
 CONFIG_TRAIN = os.path.join(
     REPO, "configs", "experiment_configs", "phydiff", "resdiff+physics_train_example.json")
+CONFIGS = os.path.join(REPO, "configs", "experiment_configs")
+# the shipped sampling config of each residual architecture (phases 3 and 9)
+ARCH_CONFIGS = {
+    "phydiff": CONFIG,
+    "resdiff": os.path.join(CONFIGS, "resdiff", "resdiff_pretrained_cnn.json"),
+    "srdiff": os.path.join(CONFIGS, "srdiff", "srdiff+rrdb_locked.json"),
+    "physrdiff": os.path.join(CONFIGS, "physrdiff", "physrdiff+rrdb_locked.json"),
+}
+# phase 9's training configs (srdiff's encoder unlocked)
+ARCH_TRAIN_CONFIGS = {
+    "srdiff": os.path.join(CONFIGS, "srdiff", "srdiff+rrdb_unlocked.json"),
+    "physrdiff": ARCH_CONFIGS["physrdiff"],
+    "resdiff": ARCH_CONFIGS["resdiff"],
+}
+# phase 8's encoder pretraining configs, by their checkpoints' names
+PRETRAIN_CONFIGS = {
+    "rrdb": os.path.join(CONFIGS, "rrdb", "pretrained_rrdb_17block_base.json"),
+    "cnn": os.path.join(CONFIGS, "simplesr", "pretrained_cnn_base.json"),
+}
+ENCODER_OF = {"resdiff": "cnn", "srdiff": "rrdb", "physrdiff": "rrdb"}
 BATCH = 8
+LR_HW = (32, 64)  # the synthetic tree's LR fields; HR is 4x
+ARCH_FIELDS = 16  # phase 9: two batches of 8, so a steady rate exists (ensemble: one)
+DPM_STEPS = 25
 TRAIN_BATCH = 4
 PEAK_F32 = 67e12  # float32 CUDA-core FLOP/s, H100 SXM
 PEAK_TF32X3 = 495e12 / 3  # float32-accurate 3xTF32 on the tensor cores, H100 SXM
@@ -140,8 +214,12 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started (t_sec)."""
+    print(json.dumps({**obj, "t_sec": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -218,12 +296,16 @@ def rel_rmse(a, b) -> float:
 
 
 def main_path_shapes(torch, model, device):
-    """(attention (kind, N, D) -> calls, GN (shape, swish) -> calls) of one UNet call."""
+    """(attention (kind, N, D) -> calls, GN (shape, swish) -> calls) of one
+    UNet call of a sampling chain (found by hooks; the encoder and the
+    chain-constant conditioning run no kernel)."""
     from collections import Counter
 
     from srewd_tpu_torch.models.blocks import CrossAttention, FusedGroupNorm, SelfAttention
 
     attn, gn = Counter(), Counter()
+    lr = torch.randn(BATCH, *LR_HW, 1, device=device)
+    cond, denoise_fn = model.denoiser({"LR": lr})
     hooks = []
     for m in model.unet.modules():
         if isinstance(m, (SelfAttention, CrossAttention)):
@@ -236,14 +318,85 @@ def main_path_shapes(torch, model, device):
                 lambda mod, inp: gn.update([((inp[0].shape[0], inp[0].shape[2],
                                               inp[0].shape[3], inp[0].shape[1]),
                                              mod.num_groups, mod.with_swish)])))
-    x = torch.randn(BATCH, 128, 256, 2, device=device)
-    lvl = torch.rand(BATCH, device=device)
     with torch.no_grad():
-        model.unet(x, lvl)
+        denoise_fn(torch.randn_like(cond), torch.rand(BATCH, device=device))
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
     return attn, gn
+
+
+def full_width_model(torch, arch, device, dropout=None):
+    """The shipped config's model of `arch` at full width, made on the card
+    with seeded random weights (encoder included)."""
+    from srewd_tpu_torch.cli import random_init_
+    from srewd_tpu_torch.configs.config import load_commented_json
+    from srewd_tpu_torch.models.factory import build_model
+
+    model_cfg = load_commented_json(ARCH_CONFIGS[arch])["model"]
+    if dropout is not None:
+        model_cfg["unet"]["dropout"] = dropout
+    with torch.device(device):
+        model = build_model(model_cfg)
+    random_init_(model.unet, 0)
+    if model.encoder is not None:
+        random_init_(model.encoder, 1)
+    return model
+
+
+def unet_call_ms(torch, model, device) -> float:
+    """Host-clock ms of one UNet call of a sampling chain at batch 8: 10 calls
+    between two synchronisations, after 2 warm-up calls."""
+    g = torch.Generator(device=device).manual_seed(1)
+    lr = torch.randn(BATCH, *LR_HW, 1, device=device, generator=g)
+    cond, denoise_fn = model.denoiser({"LR": lr})
+    x = torch.randn(cond.shape, device=device, generator=g)
+    lvl = torch.rand(BATCH, device=device, generator=g)
+    with torch.no_grad():
+        for _ in range(2):
+            denoise_fn(x, lvl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            denoise_fn(x, lvl)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 10 * 1e3
+
+
+def arch_shapes(torch, device) -> tuple:
+    """Phase 3's shape set: the union of the four residual architectures'
+    main-path shapes, with phydiff's call counts (the other archs' counts
+    where a shape is theirs alone); per arch its counts and the ms of one
+    full-width UNet call, float32 and bfloat16."""
+    from collections import Counter
+
+    attn, gn = Counter(), Counter()
+    per_arch = {}
+    for arch in ("phydiff", "resdiff", "srdiff", "physrdiff"):
+        model = full_width_model(torch, arch, device)
+        a, n = main_path_shapes(torch, model, device)
+        f32_ms = unet_call_ms(torch, model, device)
+        # the compute dtype build_model(dtype=bfloat16) sets: the UNet's
+        # weights are cast in place by the next chain, the encoder's per call
+        for m in (model.unet, model.encoder):
+            if m is not None:
+                m.dtype = torch.bfloat16
+        bf16_ms = unet_call_ms(torch, model, device)
+        del model
+        torch.cuda.empty_cache()
+        added = [k for k in list(a) + list(n) if k not in attn and k not in gn]
+        for k, c in a.items():
+            attn[k] = attn.get(k) or c
+        for k, c in n.items():
+            gn[k] = gn.get(k) or c
+        per_arch[arch] = {"attention_calls": sum(a.values()), "gn_calls": sum(n.values()),
+                          "cross_attention_calls": sum(c for (kind, *_), c in a.items()
+                                                       if kind == "cross"),
+                          "unet_call_ms_f32": f32_ms, "unet_call_ms_bf16": bf16_ms,
+                          "shapes_added": [list(map(str, k)) for k in added]
+                          if arch != "phydiff" else None}
+        emit({"phase": "unet_call", "arch": arch, "batch": BATCH, **per_arch[arch]})
+    return attn, gn, per_arch
 
 
 def _totals() -> dict:
@@ -819,6 +972,51 @@ def run_train_slice(torch, workdir, device) -> dict:
     return {"launches": launches, "step": step}
 
 
+def _step_grads(torch, model, batch, sched, draws) -> tuple:
+    """(loss, {name: gradient}) of one loss.backward(); the encoder's
+    gradients (when it is unlocked) under "encoder." names."""
+    modules = {"": model.unet}
+    if model.encoder is not None and not model.lock_encoder:
+        modules["encoder."] = model.encoder
+    for m in modules.values():
+        m.zero_grad(set_to_none=True)
+    loss = model.loss(batch, sched, **draws)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {pre + n: p.grad.detach().clone()
+                         for pre, m in modules.items() for n, p in m.named_parameters()}
+
+
+def _grad_report(grads_k, grads_p) -> dict:
+    """The worst gradient relative RMSE, kernels against plain (leaves whose
+    plain gradient norm is under 1e-6 of the largest: absolute RMSE against
+    the largest norm); the five worst leaves beside it."""
+    largest = max(gp.double().norm().item() for gp in grads_p.values())
+    errs, n_small = {}, 0
+    for name, gp in grads_p.items():
+        gk, gp = grads_k[name].double(), gp.double()
+        if gp.norm().item() < 1e-6 * largest:
+            n_small += 1
+            errs[name] = (gk - gp).norm().item() / largest
+        else:
+            errs[name] = ((gk - gp).pow(2).mean() / gp.pow(2).mean()).sqrt().item()
+    top = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    return {"grad_leaves": len(grads_p), "small_leaves": n_small,
+            "worst_grad_rel_rmse": top[0][1], "worst_leaf": top[0][0],
+            "worst_leaves": [[k, v] for k, v in top]}
+
+
+def _step_draws(torch, model_cfg, device, seed) -> tuple:
+    h, w = (int(model_cfg["diffusion"][k]) for k in ("image_height", "image_width"))
+    g = torch.Generator(device=device).manual_seed(seed)
+    batch = {"HR": torch.randn(2, h, w, 1, device=device, generator=g),
+             "LR": torch.randn(2, h // 4, w // 4, 1, device=device, generator=g)}
+    draws = {"t": torch.tensor([500], device=device),
+             "u": torch.rand(2, device=device, generator=g),
+             "noise": torch.randn(2, h, w, 1, device=device, generator=g)}
+    return batch, draws
+
+
 def compare_train_step(torch, device) -> None:
     """Phase 7: one loss.backward() with the kernels against the plain versions."""
     import copy
@@ -836,49 +1034,596 @@ def compare_train_step(torch, device) -> None:
     random_init_(model.unet, 0)
     model.unet.to(device)
     sched = Schedule.from_config(opt["model"]["beta_schedule"]["train"], device=device)
-    h, w = (int(model_cfg["diffusion"][k]) for k in ("image_height", "image_width"))
-    g = torch.Generator(device=device).manual_seed(3)
-    batch = {"HR": torch.randn(2, h, w, 1, device=device, generator=g),
-             "LR": torch.randn(2, h // 4, w // 4, 1, device=device, generator=g)}
-    draws = {"t": torch.tensor([500], device=device),
-             "u": torch.rand(2, device=device, generator=g),
-             "noise": torch.randn(2, h, w, 1, device=device, generator=g)}
-
-    def run():
-        model.unet.zero_grad(set_to_none=True)
-        loss = model.loss(batch, sched, **draws)
-        loss.backward()
-        torch.cuda.synchronize()
-        return loss.item(), {n: p.grad.detach().clone() for n, p in model.unet.named_parameters()}
-
-    loss_k, grads_k = run()
+    batch, draws = _step_draws(torch, model_cfg, device, 3)
+    loss_k, grads_k = _step_grads(torch, model, batch, sched, draws)
     with reference_ops():
-        loss_p, grads_p = run()
+        loss_p, grads_p = _step_grads(torch, model, batch, sched, draws)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    largest = max(gp.double().norm().item() for gp in grads_p.values())
-    worst, worst_name, n_small = 0.0, None, 0
-    for name, gp in grads_p.items():
-        gk, gp = grads_k[name].double(), gp.double()
-        if gp.norm().item() < 1e-6 * largest:
-            n_small += 1
-            err = (gk - gp).norm().item() / largest
-        else:
-            err = ((gk - gp).pow(2).mean() / gp.pow(2).mean()).sqrt().item()
-        if err > worst:
-            worst, worst_name = err, name
+    rep = _grad_report(grads_k, grads_p)
     emit({"phase": "step", "batch": 2, "dtype": "f32", "loss_kernels": loss_k,
-          "loss_plain": loss_p, "loss_rel_diff": loss_rel, "grad_leaves": len(grads_p),
-          "small_leaves": n_small, "worst_grad_rel_rmse": worst, "worst_leaf": worst_name,
+          "loss_plain": loss_p, "loss_rel_diff": loss_rel, **rep,
           "bounds": {"loss": 1e-5, "grad": 1e-3}})
     check(loss_rel <= 1e-5, f"whole-step loss differs by {loss_rel} (relative)")
-    check(worst <= 1e-3, f"gradient of {worst_name} differs by {worst} (relative RMSE)")
+    check(rep["worst_grad_rel_rmse"] <= 1e-3,
+          f"gradient of {rep['worst_leaf']} differs by {rep['worst_grad_rel_rmse']} "
+          "(relative RMSE)")
     del model
     torch.cuda.empty_cache()
 
 
-def kernel_entry(name, route, source, replaces, tot, launches, launches_sample=None) -> dict:
+def arch_data_settings(workdir) -> dict:
+    """Phases 8-9's synthetic 128x256 / 32x64 t2m tree, 7 days (made once):
+    6 to train on (144 fields: 4 RRDB batches of 32, one SimpleCNN batch of
+    128), the 7th to evaluate and sample."""
+    from srewd_tpu_torch.data.store import make_synthetic_weatherbench
+
+    data = os.path.join(workdir, "data_archs")
+    make_synthetic_weatherbench(data, "2017-01-01-00", "2017-01-08-00", spectrum="t2m")
+    return dict(dataroot=data, train_min_date="2017-01-01-00", train_max_date="2017-01-07-00",
+                val_min_date="2017-01-07-00", val_max_date="2017-01-08-00",
+                months_subset=[1], transform_groups={"january": [1]}, num_workers=8)
+
+
+def _write_config(workdir, name, cfg) -> str:
+    path = os.path.join(workdir, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_pretrain(torch, workdir, device) -> dict:
+    """Phase 8: `python -m srewd_tpu_torch.pretrain` (its main) for one epoch
+    of each shipped encoder config at full width; each checkpoint must
+    reload into a fresh encoder that gives finite fields."""
+    from srewd_tpu_torch import pretrain
+    from srewd_tpu_torch.configs.config import load_commented_json
+    from srewd_tpu_torch.training.pretrainer import (
+        EncoderTrainer, get_encoder_and_criterion, load_encoder_params)
+
+    ckpts = {}
+    reset_counts()
+    for name, src in PRETRAIN_CONFIGS.items():
+        cfg = load_commented_json(src)
+        cfg["data"].update(arch_data_settings(workdir))
+        cfg["train"]["epoch"] = 1
+        cfg["path"]["experiments_folder_path"] = workdir
+        path = _write_config(workdir, f"pretrain_{name}", cfg)
+        t0 = time.perf_counter()
+        with _tap(torch, EncoderTrainer, "train_step") as tap:
+            (rec,) = pretrain.main(["-c", path, "--device", str(device)])
+        sec = time.perf_counter() - t0
+        # steps/s on the trainer pretrain.main built, on the batches it took
+        speed = (_steps_per_sec(torch, tap["obj"].train_step, tap["calls"])
+                 if name == "rrdb" else None)
+        del tap
+        module, _ = get_encoder_and_criterion(cfg["model"])
+        module.load_state_dict(load_encoder_params(rec["checkpoint"]), strict=True)
+        module.to(device)
+        with torch.no_grad():
+            y = module(torch.randn(2, *LR_HW, 1, device=device))
+        reloaded = bool(torch.isfinite(y).all()) and y.shape[1:3] == (4 * LR_HW[0], 4 * LR_HW[1])
+        emit({"phase": "pretrain", "encoder": name, "config": os.path.relpath(src, REPO),
+              "batch": int(cfg["data"]["batch_size"]), "steps": rec["steps"],
+              "train_loss": rec["train_loss"], "val_kelvin": rec["val"],
+              "checkpoint": os.path.basename(rec["checkpoint"]), "reloaded": reloaded,
+              "sec_epoch": sec, "train_sec": rec["train_sec"], "speed": speed})
+        check(rec["steps"] > 0 and math.isfinite(rec["train_loss"]),
+              f"{name} pretraining: {rec['steps']} steps, loss {rec['train_loss']}")
+        check(all(math.isfinite(v) for v in rec["val"].values()),
+              f"{name} pretraining: validation metrics not finite: {rec['val']}")
+        check(os.path.basename(rec["checkpoint"]) == f"pretrain_{name}_E0",
+              f"unexpected checkpoint {rec['checkpoint']}")
+        check(reloaded, f"the {name} checkpoint did not reload into a working encoder")
+        ckpts[name] = rec["checkpoint"]
+        del module
+    launches, plain = read_counts()
+    check(sum(plain.values()) == 0, f"a plain version ran during pretraining: {plain}")
+    return {"checkpoints": ckpts, "launches": launches}
+
+
+def _sample_defaults(torch) -> None:
+    """cuDNN as the sample CLI meets it (heuristic algorithms), not as the
+    training runs before leave it."""
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = False
+
+
+def _check_fields(out, n, std=False) -> dict:
+    import numpy as np
+
+    sub = "sr_std" if std else "sr"
+    files = sorted(os.listdir(os.path.join(out, sub)))
+    fields = [np.load(os.path.join(out, sub, f)) for f in files]
+    finite = all(bool(np.all(np.isfinite(a))) for a in fields)
+    lo = min(float(a.min()) for a in fields)
+    hi = max(float(a.max()) for a in fields)
+    check(len(files) == n, f"expected {n} files in {sub}/, got {len(files)}")
+    check(all(a.shape == (128, 256, 1) for a in fields), f"{sub}/ field shape is not 128x256x1")
+    check(finite, f"non-finite values in {sub}/")
+    if std:
+        check(lo >= 0.0 and hi > 0.0, f"ensemble std out of range: [{lo}, {hi}]")
+    else:
+        check(180.0 < lo and hi < 360.0, f"fields outside a plausible Kelvin range: [{lo}, {hi}]")
+    return {"min": lo, "max": hi}
+
+
+def sample_arch(torch, workdir, arch, cfg_path, tag, extra, per_arch, fields) -> dict:
+    """One `srewd_tpu_torch.sample.main` run of phase 9 with its checks: the
+    fields, and K1 and K3 launched exactly (UNet calls) x (their calls per
+    UNet call) times, the plain versions and the backward kernels never."""
+    from srewd_tpu_torch import sample
+
+    out = os.path.join(workdir, f"out_{arch}_{tag}")
+    _sample_defaults(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = sample.main(["-c", cfg_path, "--date-range", "2017-01-07-00",
+                           f"2017-01-07-{fields:02d}", "--batch-size", str(BATCH), "--save-npy",
+                           "-o", out, "--device", "cuda", *extra])
+    sec = time.perf_counter() - t0
+    launches, plain = read_counts()
+    n_ens = summary["ensemble"]
+    steps = int(extra[extra.index("--ddim-steps") + 1])
+    unet_calls = steps * (fields // BATCH) * n_ens
+    kelvin = _check_fields(out, fields)
+    std = _check_fields(out, fields, std=True) if n_ens > 1 else None
+    line = {"phase": "archs_sample", "arch": arch, "run": tag, "sec": sec, "summary": summary,
+            "unet_calls": unet_calls, "launches": launches, "plain_calls": plain,
+            "kelvin": kelvin, "ensemble_std_kelvin": std}
+    emit(line)
+    check(launches["flash_attention"] == unet_calls * per_arch[arch]["attention_calls"],
+          f"{arch} {tag}: K1 launched {launches['flash_attention']} times for {unet_calls} "
+          f"UNet calls of {per_arch[arch]['attention_calls']} attention calls")
+    check(launches["gn_swish"] == unet_calls * per_arch[arch]["gn_calls"],
+          f"{arch} {tag}: K3 launched {launches['gn_swish']} times for {unet_calls} "
+          f"UNet calls of {per_arch[arch]['gn_calls']} GN calls")
+    check(launches["flash_attention_backward"] == 0 and launches["gn_swish_backward"] == 0,
+          f"{arch} {tag}: a backward kernel ran while sampling: {launches}")
+    check(sum(plain.values()) == 0, f"{arch} {tag}: the plain versions ran: {plain}")
+    return line
+
+
+# The spliter's noise gate at one image channel: a ResSE with a single hidden
+# unit behind a ReLU, whose input (the mean of the noise embedding's map) has
+# one sign for a whole batch, since the batch shares one gamma. When that
+# unit is off, both weights' gradients are exactly zero (the JAX model's as
+# well: tests/test_torch_port_archs.py holds every gradient leaf to it).
+DEAD_RELU_OK = ("fd_spliter.noise_resSE.fc.",)
+
+
+@contextlib.contextmanager
+def _tap(torch, cls, method: str, on_first=None):
+    """While open, the first object of class `cls` whose `method` runs (the
+    trainer an entry point builds) is kept in the yielded dict ("obj"), with
+    the arguments of each of its calls ("calls") and the time of its first
+    call ("first_call_sec", to a synchronise; cuDNN times its algorithms
+    there); `on_first(obj)` runs right after that call ("first")."""
+    orig = getattr(cls, method)
+    seen = {"obj": None, "calls": []}
+
+    def call(self, *args):
+        first = seen["obj"] is None
+        if first:
+            seen["obj"] = self
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = orig(self, *args)
+        if first:
+            torch.cuda.synchronize()
+            seen["first_call_sec"] = time.perf_counter() - t0
+            if on_first is not None:
+                seen["first"] = on_first(self)
+        if self is seen["obj"]:
+            seen["calls"].append(args)
+        return out
+
+    setattr(cls, method, call)
+    try:
+        yield seen
+    finally:
+        setattr(cls, method, orig)
+
+
+def _check_grads(torch, model) -> dict:
+    """After a training step: every UNet parameter has a finite gradient,
+    not all zero but for DEAD_RELU_OK's; every encoder parameter too when
+    the encoder is unlocked, and none when it is locked."""
+    def bad(module):
+        return [n for n, p in module.named_parameters() if p.grad is None
+                or not bool(torch.isfinite(p.grad).all())
+                or not (bool(p.grad.any()) or n.startswith(DEAD_RELU_OK))]
+
+    bad_unet = bad(model.unet)
+    zero_ok = [n for n, p in model.unet.named_parameters()
+               if n.startswith(DEAD_RELU_OK) and not bool(p.grad.any())]
+    n_enc = sum(1 for _ in model.encoder.parameters())
+    if model.lock_encoder:
+        bad_enc = [n for n, p in model.encoder.named_parameters() if p.grad is not None]
+    else:
+        bad_enc = bad(model.encoder)
+    check(not bad_unet, f"{len(bad_unet)} UNet parameters got no finite nonzero gradient: "
+                        f"{bad_unet[:8]}")
+    check(not bad_enc, f"{len(bad_enc)} of {n_enc} encoder parameters break the "
+                       f"{'locked' if model.lock_encoder else 'unlocked'} rule: {bad_enc[:8]}")
+    return {"params_with_grad": sum(1 for _ in model.unet.parameters()),
+            "zero_grads_behind_a_dead_relu": zero_ok, "encoder_params": n_enc,
+            "encoder_locked": model.lock_encoder,
+            "encoder_params_with_grad": 0 if model.lock_encoder else n_enc}
+
+
+def _steps_per_sec(torch, step, calls) -> dict:
+    """Steps/s of `step`: 5 calls between two synchronisations (host clock),
+    on the arguments of `calls` in turn."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(5):
+        step(*calls[i % len(calls)])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    return {"step_host_ms": ms, "steps_per_sec": 1e3 / ms}
+
+
+def train_arch(torch, workdir, arch, ckpt, device) -> dict:
+    """Phase 9's training of one arch: train.main for 5 steps at batch 4
+    with a checkpoint at step 3 (its trainer's gradients checked after the
+    first step, and 5 more steps timed on it after the run), a resume from
+    the checkpoint to step 5 that must repeat steps 4-5, and a DPM-5 sample
+    from the step-5 checkpoint with its EMA weights."""
+    import glob
+
+    from srewd_tpu_torch import sample, train
+    from srewd_tpu_torch.configs.config import load_commented_json
+
+    cfg = load_commented_json(ARCH_TRAIN_CONFIGS[arch])
+    cfg["data"].update(arch_data_settings(workdir), batch_size=TRAIN_BATCH,
+                       val_batch_size=BATCH)
+    cfg["model"]["pretrained_model"]["model_path"] = ckpt
+    cfg["path"]["experiments_folder_path"] = os.path.join(workdir, f"train_{arch}")
+    cfg["train"].update(n_iter=5, print_freq=1, save_checkpoint_freq=3, val_freq=1000,
+                        full_val_freq=1000)
+    # EMA on physrdiff; the other two sample their checkpoint with --use-ema
+    # and no EMA state, which warns and takes the raw weights
+    ema = arch == "physrdiff"
+    cfg["train"]["ema_scheduler"].update(enabled=ema, step_start_ema=0)
+    cfg_path = _write_config(workdir, f"train_{arch}", cfg)
+
+    from srewd_tpu_torch.training.trainer import DiffusionTrainer
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with _tap(torch, DiffusionTrainer, "train_on_batch_async",
+              lambda trainer: _check_grads(torch, trainer.model)) as tap:
+        first = train.main(["-c", cfg_path, "--device", str(device)])
+    sec = {"train_main": time.perf_counter() - t0}
+    launches, plain = read_counts()
+    check("first" in tap, f"{arch}: train.main took no step")
+    # steps/s on the trainer train.main built, after its 5 steps and save
+    reset_counts()
+    speed = _steps_per_sec(torch, tap["obj"].train_on_batch_async, tap["calls"])
+    per_step, _ = read_counts()
+    step = {**tap["first"], "first_step_sec": tap["first_call_sec"], **speed,
+            "launches_per_step": {k: v / 5 for k, v in per_step.items()}}
+    del tap
+    torch.cuda.empty_cache()
+    runs = glob.glob(os.path.join(workdir, f"train_{arch}", "experiments", "*", "checkpoint"))
+    check(len(runs) == 1, f"{arch}: expected one training run, found {runs}")
+    cfg["path"]["resume_state"] = os.path.join(runs[0], "I3_E1")
+    resume_path = _write_config(workdir, f"train_{arch}_resume", cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    second = train.main(["-c", resume_path, "--device", str(device)])
+    sec["resume"] = time.perf_counter() - t0
+    launches_resume, plain_resume = read_counts()
+    losses, resumed = dict(first["losses"]), dict(second["losses"])
+    rel = max(abs(resumed[s] - losses[s]) / max(abs(losses[s]), 1e-30) for s in resumed)
+
+    out = os.path.join(workdir, f"out_{arch}_ema")
+    _sample_defaults(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = sample.main(["-c", cfg_path, "-m", os.path.join(runs[0], "I5_E1"), "--use-ema",
+                           "--sampler", "dpm", "--ddim-steps", "5", "--date-range",
+                           "2017-01-07-00", "2017-01-07-08", "--batch-size", str(BATCH),
+                           "--save-npy", "-o", out, "--device", "cuda"])
+    sec["ema_sample"] = time.perf_counter() - t0
+    launches_sample, plain_sample = read_counts()
+    fields = _check_fields(out, BATCH)
+    emit({"phase": "archs_train", "arch": arch, "batch": TRAIN_BATCH, "dtype": "f32",
+          "step": step, "sec": sec, "losses": [losses[s] for s in sorted(losses)],
+          "launches": launches, "plain_calls": plain, "resumed_steps": sorted(resumed),
+          "resume_max_rel_diff": rel, "launches_resume": launches_resume,
+          "ema_sample": {"summary": summary, "kelvin": fields, "launches": launches_sample}})
+    check(sorted(losses) == [1, 2, 3, 4, 5], f"{arch}: steps logged {sorted(losses)}")
+    check(all(math.isfinite(v) for v in losses.values()), f"{arch}: a loss is not finite")
+    check(all(launches[k] > 0 for k in launches), f"{arch}: a kernel was not launched: {launches}")
+    check(sum(plain.values()) + sum(plain_resume.values()) + sum(plain_sample.values()) == 0,
+          f"{arch}: the plain versions ran: {plain} {plain_resume} {plain_sample}")
+    check(sorted(resumed) == [4, 5], f"{arch}: resumed steps {sorted(resumed)}")
+    check(rel <= 1e-6, f"{arch}: resumed losses differ by {rel} (relative)")
+    check(summary["ema"] == ema, f"{arch}: the sample run's EMA use is {summary['ema']}, "
+                                 f"the checkpoint's EMA state {ema}")
+    check(launches_sample["flash_attention"] > 0 and launches_sample["gn_swish"] > 0,
+          f"{arch}: K1/K3 not launched sampling the checkpoint: {launches_sample}")
+    return {"launches": launches, "launches_resume": launches_resume,
+            "launches_sample": launches_sample, "steps_per_sec": step["steps_per_sec"]}
+
+
+def run_archs(torch, workdir, device, ckpts, per_arch) -> dict:
+    """Phase 9: the three new architectures through the port's entry points
+    at full width on the phase-8 encoders: DPM-25 sampling in float32 and
+    bfloat16 (physrdiff also as an ensemble of 2), then training."""
+    from collections import Counter
+
+    from srewd_tpu_torch.configs.config import load_commented_json
+
+    total = Counter()
+    for arch in ("resdiff", "srdiff", "physrdiff"):
+        cfg = load_commented_json(ARCH_CONFIGS[arch])
+        cfg["data"].update(arch_data_settings(workdir))
+        cfg["model"]["pretrained_model"]["model_path"] = ckpts[ENCODER_OF[arch]]
+        cfg_path = _write_config(workdir, f"sample_{arch}", cfg)
+        runs = [("f32", [], ARCH_FIELDS), ("bf16", ["--dtype", "bfloat16"], ARCH_FIELDS)]
+        if arch == "physrdiff":
+            runs.append(("f32_ensemble2", ["--ensemble", "2"], BATCH))
+        for tag, extra, fields in runs:
+            line = sample_arch(torch, workdir, arch, cfg_path, tag,
+                               ["--sampler", "dpm", "--ddim-steps", str(DPM_STEPS), *extra],
+                               per_arch, fields)
+            total.update(line["launches"])
+    for arch in ("srdiff", "physrdiff", "resdiff"):
+        res = train_arch(torch, workdir, arch, ckpts[ENCODER_OF[arch]], device)
+        for key in ("launches", "launches_resume", "launches_sample"):
+            total.update(res[key])
+    return dict(total)
+
+
+def _side(torch, fn, plain: bool, uses: tuple) -> tuple:
+    """fn()'s result, run with the kernels or inside reference_ops(), and
+    its checked counts: with the kernels, each of `uses` launched and no
+    plain version called; inside reference_ops(), no kernel launched."""
+    from srewd_tpu_torch.ops import reference_ops
+
+    reset_counts()
+    with reference_ops() if plain else contextlib.nullcontext():
+        out = fn()
+    launches, calls = read_counts()
+    if plain:
+        check(sum(launches.values()) == 0, f"a kernel launched inside reference_ops(): {launches}")
+    else:
+        check(all(launches[k] > 0 for k in uses) and sum(calls.values()) == 0,
+              f"the kernel side did not run on {uses} alone: {launches} {calls}")
+    return out, launches
+
+
+def compare_archs(torch, device) -> None:
+    """Phase 10: full-width physrdiff (spliter, RRDB, cross-attention), batch
+    2, the same weights: DPM-10 generate_sr with the kernels against the
+    plain versions (relative RMSE of the residual <= 1e-3), and one training
+    step with the encoder unlocked (loss <= 1e-5 relative, every UNet and
+    encoder gradient <= 1e-3 relative RMSE). Each kernel side must launch
+    its kernels and call no plain version; each plain side launches none.
+    cuDNN as the sample CLI meets it (the step too: no algorithm timing)."""
+    from srewd_tpu_torch.configs.config import load_commented_json
+    from srewd_tpu_torch.diffusion.schedule import Schedule
+
+    _sample_defaults(torch)
+    model = full_width_model(torch, "physrdiff", device, dropout=0.0)
+    model_cfg = load_commented_json(ARCH_CONFIGS["physrdiff"])["model"]
+    sched = Schedule.from_config(model_cfg["beta_schedule"]["val"], device=device)
+    g = torch.Generator(device=device).manual_seed(4)
+    lr = torch.randn(2, *LR_HW, 1, device=device, generator=g)
+
+    def run():
+        gen = torch.Generator(device=device).manual_seed(5)
+        return model.generate_sr({"LR": lr}, sched, generator=gen, sampler="dpm", ddim_steps=10)
+
+    cond = model.condition({"LR": lr})
+    sampling = ("flash_attention", "gn_swish")
+    with_kernels, launches_sample = _side(torch, run, False, sampling)
+    plain, _ = _side(torch, run, True, sampling)
+    err = rel_rmse(with_kernels - cond, plain - cond)
+
+    model.lock_encoder = False
+    batch, draws = _step_draws(torch, model_cfg, device, 6)
+    training = ("flash_attention", "flash_attention_backward", "gn_swish", "gn_swish_backward")
+    (loss_k, grads_k), launches_step = _side(
+        torch, lambda: _step_grads(torch, model, batch, sched, draws), False, training)
+    (loss_p, grads_p), _ = _side(
+        torch, lambda: _step_grads(torch, model, batch, sched, draws), True, training)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rep = _grad_report(grads_k, grads_p)
+    n_enc = sum(1 for k in grads_p if k.startswith("encoder."))
+    emit({"phase": "compare_archs", "arch": "physrdiff", "batch": 2, "dtype": "f32",
+          "dpm_steps": 10, "rel_rmse_kernels_vs_plain": err, "loss_kernels": loss_k,
+          "loss_plain": loss_p, "loss_rel_diff": loss_rel, "encoder_grad_leaves": n_enc, **rep,
+          "launches_sample": launches_sample, "launches_step": launches_step,
+          "bounds": {"sample": 1e-3, "loss": 1e-5, "grad": 1e-3}})
+    check(err <= 1e-3, f"physrdiff DPM-10 kernels vs plain rel RMSE {err} > 1e-3")
+    check(n_enc > 0, "the unlocked encoder's gradients are missing")
+    check(loss_rel <= 1e-5, f"physrdiff step loss differs by {loss_rel} (relative)")
+    check(rep["worst_grad_rel_rmse"] <= 1e-3,
+          f"gradient of {rep['worst_leaf']} differs by {rep['worst_grad_rel_rmse']}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _watch_kernels(torch, log: dict):
+    """Wrap the four kernel wrappers (module globals, which the autograd
+    Functions look up at each call) so that every launch is made twice on
+    the same inputs, whose results must be the same bit for bit, and is held
+    against its plain version on those inputs (phase 3's float32
+    tolerances). `log` collects per kernel the calls, the repeats that
+    differ, the non-finite results, the worst error over its tolerance and
+    the first few bad calls. Returns the function that unwraps them."""
+    from srewd_tpu_torch.ops import flash_attention as fa
+    from srewd_tpu_torch.ops import fused_groupnorm as gn
+    from srewd_tpu_torch.ops import use_plain
+
+    def note(name, shape, outs, again, pairs, rel):
+        rec = log.setdefault(name, {"calls": 0, "differ_on_repeat": 0, "nonfinite": 0,
+                                    "over_tol": 0, "worst_err_over_tol": 0.0, "bad": []})
+        rec["calls"] += 1
+        same = all(torch.equal(a, b) for a, b in zip(outs, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in outs)
+        ratio = max((a.double() - r.double()).abs().max().item()
+                    / (rel * max(1.0, r.double().abs().max().item())) for a, r in pairs)
+        rec["differ_on_repeat"] += not same
+        rec["nonfinite"] += not finite
+        rec["over_tol"] += ratio > 1.0
+        rec["worst_err_over_tol"] = max(rec["worst_err_over_tol"], ratio)
+        if (not same or not finite or ratio > 1.0) and len(rec["bad"]) < 6:
+            rec["bad"].append({"shape": list(shape), "same_on_repeat": same, "finite": finite,
+                               "err_over_tol": ratio})
+
+    orig = {"k1": fa.flash_attention, "k2": fa.flash_attention_backward,
+            "k3": gn.gn_swish, "k3b": gn.gn_swish_backward}
+
+    def k1(q, k, v, scale, return_lse=False):
+        res = orig["k1"](q, k, v, scale, return_lse=return_lse)
+        if use_plain(q):
+            return res
+        again = orig["k1"](q, k, v, scale, return_lse=return_lse)
+        outs, again = (res, again) if return_lse else ((res,), (again,))
+        note("flash_attention", q.shape, outs, again,
+             [(outs[0], fa.attention_reference(q, k, v, scale))], 1e-5)
+        return res
+
+    def k2(q, k, v, o, lse, do, scale):
+        res = orig["k2"](q, k, v, o, lse, do, scale)
+        again = orig["k2"](q, k, v, o, lse, do, scale)
+        note("flash_attention_backward", q.shape, res, again,
+             list(zip(res, fa.attention_backward_reference(q, k, v, do, scale))), 1e-4)
+        return res
+
+    def k3(x, weight, bias, num_groups=32, eps=1e-5, apply_swish=True, return_stats=False):
+        res = orig["k3"](x, weight, bias, num_groups, eps, apply_swish, return_stats)
+        if use_plain(x):
+            return res
+        again = orig["k3"](x, weight, bias, num_groups, eps, apply_swish, return_stats)
+        outs, again = (res, again) if return_stats else ((res,), (again,))
+        note("gn_swish", x.shape, outs, again,
+             [(outs[0], gn.gn_swish_reference(x, weight, bias, num_groups, eps, apply_swish))],
+             1e-5)
+        return res
+
+    def k3b(x, dy, weight, bias, mean, rstd, num_groups=32, apply_swish=True):
+        res = orig["k3b"](x, dy, weight, bias, mean, rstd, num_groups, apply_swish)
+        again = orig["k3b"](x, dy, weight, bias, mean, rstd, num_groups, apply_swish)
+        ref = gn.gn_swish_backward_reference(x, dy, weight, bias, num_groups, 1e-5, apply_swish)
+        note("gn_swish_backward", x.shape, res, again, list(zip(res, ref)), 1e-4)
+        return res
+
+    for wrapper in (k1, k2, k3, k3b):
+        wrapper.launches = 0  # the wrapped functions count under their module name
+    fa.flash_attention, fa.flash_attention_backward = k1, k2
+    gn.gn_swish, gn.gn_swish_backward = k3, k3b
+
+    def unwrap():
+        fa.flash_attention, fa.flash_attention_backward = orig["k1"], orig["k2"]
+        gn.gn_swish, gn.gn_swish_backward = orig["k3"], orig["k3b"]
+    return unwrap
+
+
+def _poison_allocator(torch, device) -> None:
+    """Hand the caching allocator back ~6 GiB of large blocks and ~1 GiB of
+    small ones filled with NaN, so that buffers it hands out next start as
+    NaN: a kernel that reads memory nobody wrote gives NaN."""
+    torch.cuda.empty_cache()
+    big = [torch.full((64 << 20,), float("nan"), device=device) for _ in range(24)]
+    small = [torch.full((64 << 10,), float("nan"), device=device) for _ in range(4096)]
+    torch.cuda.synchronize()
+    del big, small
+
+
+def stress_step(torch, device, repeats: int) -> None:
+    """--stress N, after phases 1-6: phase 7's step (phydiff) and phase 10's
+    (physrdiff, RRDB unlocked), each N times, under phase 6's cuDNN settings
+    (deterministic, algorithms timed: `cli.cuda_numerics(training=True)`),
+    with every kernel launch watched (_watch_kernels) from repeat 1 on; odd
+    repeats run in NaN-poisoned memory.
+    One line per repeat: the step's kernels-vs-plain loss and worst gradient
+    as phases 7 and 10 report them, whether each side's gradients equal its
+    first repeat's bit for bit, and the kernels' per-call records."""
+    import copy
+
+    from srewd_tpu_torch.cli import cuda_numerics, random_init_
+    from srewd_tpu_torch.configs.config import load_commented_json
+    from srewd_tpu_torch.diffusion.schedule import Schedule
+    from srewd_tpu_torch.models.factory import build_model
+    from srewd_tpu_torch.ops import reference_ops
+
+    cuda_numerics(device, training=True)
+    opt = load_commented_json(CONFIG_TRAIN)
+    model_cfg = copy.deepcopy(opt["model"])
+    model_cfg["unet"]["dropout"] = 0.0
+    phydiff = build_model(model_cfg)
+    random_init_(phydiff.unet, 0)
+    phydiff.unet.to(device)
+    phy_sched = Schedule.from_config(opt["model"]["beta_schedule"]["train"], device=device)
+    physr = full_width_model(torch, "physrdiff", device, dropout=0.0)
+    physr.lock_encoder = False
+    physr_cfg = load_commented_json(ARCH_CONFIGS["physrdiff"])["model"]
+    cases = {"phase7_phydiff": (phydiff, phy_sched, *_step_draws(torch, model_cfg, device, 3)),
+             "phase10_physrdiff": (physr, Schedule.from_config(
+                 physr_cfg["beta_schedule"]["val"], device=device),
+                 *_step_draws(torch, physr_cfg, device, 6))}
+    totals = {}
+    for case, (model, sched, batch, draws) in cases.items():
+        first = {}
+        worst = []
+        for r in range(repeats):
+            poisoned = r % 2 == 1
+            if poisoned:
+                _poison_allocator(torch, device)
+            log = {}
+            # repeat 0 is the phase's own step: no launch watched
+            unwrap = _watch_kernels(torch, log) if r else (lambda: None)
+            try:
+                loss_k, grads_k = _step_grads(torch, model, batch, sched, draws)
+            finally:
+                unwrap()
+            with reference_ops():
+                loss_p, grads_p = _step_grads(torch, model, batch, sched, draws)
+            rep = _grad_report(grads_k, grads_p)
+            same = {}
+            for side, grads in (("kernels", grads_k), ("plain", grads_p)):
+                if side not in first:
+                    first[side] = grads
+                same[side] = all(torch.equal(grads[k], first[side][k]) for k in grads)
+            nonfinite = [k for k, g in grads_k.items() if not bool(torch.isfinite(g).all())]
+            line = {"phase": "stress", "case": case, "repeat": r, "poisoned": poisoned,
+                    "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p), **rep,
+                    "kernel_grads_same_as_repeat_0": same["kernels"],
+                    "plain_grads_same_as_repeat_0": same["plain"],
+                    "nonfinite_kernel_grads": nonfinite[:8], "kernels": log}
+            emit(line)
+            worst.append(rep["worst_grad_rel_rmse"])
+            for name, rec in log.items():
+                tot = totals.setdefault(name, {"calls": 0, "differ_on_repeat": 0, "nonfinite": 0,
+                                               "over_tol": 0, "worst_err_over_tol": 0.0})
+                for key in ("calls", "differ_on_repeat", "nonfinite", "over_tol"):
+                    tot[key] += rec[key]
+                tot["worst_err_over_tol"] = max(tot["worst_err_over_tol"],
+                                                rec["worst_err_over_tol"])
+            totals.setdefault("steps", {})[case] = {
+                "repeats": r + 1, "worst_grad_rel_rmse_max": max(worst),
+                "worst_grad_rel_rmse_min": min(worst),
+                "over_bound": sum(w > 1e-3 for w in worst)}
+    emit({"phase": "stress_summary", **totals})
+    bad = {k: v for k, v in totals.items() if k != "steps"
+           and (v["differ_on_repeat"] or v["nonfinite"] or v["over_tol"])}
+    check(not bad, f"a kernel launch repeated differently, gave non-finite values or broke "
+                   f"its tolerance: {bad}")
+    check(all(v["over_bound"] == 0 for v in totals["steps"].values()),
+          f"a step broke the 1e-3 gradient bound: {totals['steps']}")
+
+
+def kernel_entry(name, route, source, replaces, tot, launches_by_phase) -> dict:
+    """The kernels line's entry: `launches` sums the main-path runs (phases
+    4, 6, 8 and 9, each counted from 0), `launches_by_phase` splits them."""
     entry = {"name": name, "route": route, "source": source, "replaces": replaces,
-             "launches": launches, "max_abs_err": tot["f32_err"],
+             "launches": sum(launches_by_phase.values()),
+             "launches_by_phase": launches_by_phase, "max_abs_err": tot["f32_err"],
              "max_abs_err_bf16": tot["bf16_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
              "bound_ms_cuda_cores": tot["bound_ms_cuda_cores"], "library_ms": tot["library_ms"]}
@@ -886,8 +1631,6 @@ def kernel_entry(name, route, source, replaces, tot, launches, launches_sample=N
                 "torch_two_calls_ms"):
         if key in tot:
             entry[key] = tot[key]
-    if launches_sample is not None:
-        entry["launches_sample"] = launches_sample
     return entry
 
 
@@ -937,9 +1680,10 @@ def report_cuda_kernels() -> None:
 
 
 def main(argv: list) -> int:
-    if argv not in ([], ["--profile"]):
-        print(f"chip_smoke: unknown arguments {argv}; the only option is --profile",
-              file=sys.stderr)
+    stress = argv[1] if len(argv) == 2 and argv[0] == "--stress" else None
+    if argv not in ([], ["--profile"]) and not (stress or "").isdigit():
+        print(f"chip_smoke: unknown arguments {argv}; the options are --profile and "
+              "--stress N", file=sys.stderr)
         return 2
     import torch
 
@@ -975,22 +1719,17 @@ def main(argv: list) -> int:
           "build_dir": os.path.relpath(_build.BUILD_DIR, REPO)})
     report_cuda_kernels()
     os.makedirs(os.path.join(BUILD, "profile"), exist_ok=True)
-    if argv:
+    if argv == ["--profile"]:
         profile_unet(torch, device)
         print(smi, flush=True)
         return 0
 
-    from srewd_tpu_torch.cli import random_init_
-    from srewd_tpu_torch.configs.config import load_commented_json
-    from srewd_tpu_torch.models.factory import build_model
-
-    model = build_model(load_commented_json(CONFIG)["model"])
-    random_init_(model.unet, 0)
-    model.unet.to(device).eval()
-    attn_shapes, gn_shapes = main_path_shapes(torch, model, device)
-    del model
-    emit({"phase": "shapes", "attention": [[kind, n, d, c] for (kind, n, d), c in sorted(attn_shapes.items())],
-          "gn_swish": [[list(s), g, sw, c] for (s, g, sw), c in sorted(gn_shapes.items())]})
+    attn_shapes, gn_shapes, per_arch = arch_shapes(torch, device)
+    emit({"phase": "shapes", "archs": list(per_arch),
+          "attention": [[kind, n, d, c] for (kind, n, d), c in sorted(attn_shapes.items())],
+          "gn_swish": [[list(s), g, sw, c] for (s, g, sw), c in sorted(gn_shapes.items())],
+          "added_by_resdiff_srdiff_physrdiff": sum(
+              len(per_arch[a]["shapes_added"]) for a in ("resdiff", "srdiff", "physrdiff"))})
     kernels = {**compare_attention(torch, attn_shapes, device),
                **compare_gn(torch, gn_shapes, device)}
     torch.cuda.empty_cache()
@@ -999,24 +1738,32 @@ def main(argv: list) -> int:
         launches_sample, _ = run_slice(torch, workdir)
         compare_slice(torch, device)
         torch.cuda.empty_cache()
-        launches = run_train_slice(torch, workdir, device)["launches"]
-    compare_train_step(torch, device)
+        launches_train = run_train_slice(torch, workdir, device)["launches"]
+        if stress:
+            stress_step(torch, device, int(stress))
+            print(smi, flush=True)
+            return 0
+        compare_train_step(torch, device)
+        pre = run_pretrain(torch, workdir, device)
+        launches_archs = run_archs(torch, workdir, device, pre["checkpoints"], per_arch)
+    compare_archs(torch, device)
+
+    by_phase = {"sample_phydiff": launches_sample, "train_phydiff": launches_train,
+                "pretrain": pre["launches"], "archs": launches_archs}
+
+    def entry(name, source, replaces):
+        return kernel_entry(name, "cuda", source, replaces, kernels[name],
+                            {k: v.get(name, 0) for k, v in by_phase.items()})
 
     emit({"kernels": [
-        kernel_entry("flash_attention", "cuda", "srewd_tpu_torch/csrc/flash_attention.cu",
-                     "srewd_tpu/ops/flash_attention.py:95", kernels["flash_attention"],
-                     launches["flash_attention"], launches_sample["flash_attention"]),
-        kernel_entry("flash_attention_backward", "cuda",
-                     "srewd_tpu_torch/csrc/flash_attention_bwd.cu",
-                     "srewd_tpu/ops/flash_attention.py:173",
-                     kernels["flash_attention_backward"],
-                     launches["flash_attention_backward"]),
-        kernel_entry("gn_swish", "cuda", "srewd_tpu_torch/csrc/gn_swish.cu",
-                     "srewd_tpu/ops/pallas_fused.py:149", kernels["gn_swish"],
-                     launches["gn_swish"], launches_sample["gn_swish"]),
-        kernel_entry("gn_swish_backward", "cuda", "srewd_tpu_torch/csrc/gn_swish.cu",
-                     "srewd_tpu/ops/pallas_fused.py:211", kernels["gn_swish_backward"],
-                     launches["gn_swish_backward"]),
+        entry("flash_attention", "srewd_tpu_torch/csrc/flash_attention.cu",
+              "srewd_tpu/ops/flash_attention.py:95"),
+        entry("flash_attention_backward", "srewd_tpu_torch/csrc/flash_attention_bwd.cu",
+              "srewd_tpu/ops/flash_attention.py:173"),
+        entry("gn_swish", "srewd_tpu_torch/csrc/gn_swish.cu",
+              "srewd_tpu/ops/pallas_fused.py:149"),
+        entry("gn_swish_backward", "srewd_tpu_torch/csrc/gn_swish.cu",
+              "srewd_tpu/ops/pallas_fused.py:211"),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,18 +5,21 @@ module layout and names, so each port module sits where its counterpart
 does. It imports `torch` and never `jax`.
 
 Conventions:
-  - the public functions (`DiffusionModel.generate_sr`, the ops) take and
-    return NHWC tensors, as the JAX package does; inside the UNet the
-    activations are NCHW tensors in channels_last memory, so an NHWC view
-    of them is free;
+  - the public functions (`DiffusionModel.generate_sr`, the ops, the
+    encoders) take and return NHWC tensors, as the JAX package does; inside
+    the networks the activations are NCHW tensors in channels_last memory,
+    so an NHWC view of them is free;
   - every call names its `device`; randomness comes from explicit
     `torch.Generator`s or is handed in (tests feed the JAX noise);
   - the framework-free host modules of `srewd_tpu` (configs, data, native,
-    utils.{logging,seeding}) are reused by import, not copied.
+    utils.{logging,seeding}) are the port's own copies: it imports nothing
+    of `srewd_tpu`.
 
-Hand-written kernels on the sampling path:
-  ops/flash_attention.py + csrc/flash_attention.cu  (CUDA C++, sm_90a)
-  ops/fused_groupnorm.py                            (Triton)
+Entry points: `python -m srewd_tpu_torch.{sample,train,pretrain}`.
+
+Hand-written kernels (CUDA C++, sm_90a, built by ops/_build.py):
+  ops/flash_attention.py + csrc/flash_attention.cu, csrc/flash_attention_bwd.cu
+  ops/fused_groupnorm.py + csrc/gn_swish.cu (forward and backward)
 Each has a plain PyTorch version beside it, used for CPU tensors and for
 the comparisons in chip_smoke.py.
 """

@@ -1,9 +1,12 @@
 """Shared CLI plumbing of the port (counterpart of srewd_tpu/cli.py): the
 commented-JSON config, the npy data pipeline with month-grouped scalers,
-seeding, the trainer's construction and the device choice.
+seeding, the model's weights (seeded random, the pretrained encoder, a
+checkpoint), the trainer's construction and the device choice.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -11,11 +14,13 @@ import torch.nn as nn
 
 from .configs.config import Config
 from .data.pipeline import DataHandler
+from .training.checkpoint import CheckpointManager
 from .utils.jax_params import load_npz, unet_state_from_jax
 from .utils.seeding import set_seeds
 
 __all__ = ["Config", "build_data_handler", "build_trainer", "sampler_kwargs", "set_seeds",
-           "load_unet_weights", "random_init_", "resolve_device", "denormalize"]
+           "init_weights", "load_model_weights", "random_init_", "resolve_device",
+           "denormalize"]
 
 
 def build_data_handler(opt: dict, storage_root: str | None = None, **overrides) -> DataHandler:
@@ -65,15 +70,18 @@ def sampler_kwargs(opt: dict) -> dict:
 
 def build_trainer(opt: dict, device: torch.device):
     """The DiffusionTrainer of opt (counterpart of srewd_tpu.cli.build_trainer,
-    without the encoder and multihost branches): float32 model with seeded
-    random weights, the optimizer with optional global-norm clipping and
-    finetune_norm, EMA, checkpoints, the sampler settings, and resume."""
+    without the multihost branch): float32 model with seeded random weights,
+    the encoder from `pretrained_model.model_path` when the config names one
+    (after init, before resume), the optimizer with optional global-norm
+    clipping and finetune_norm, EMA, checkpoints, the sampler settings, and
+    resume."""
     from .diffusion.schedule import Schedule
     from .models.factory import build_model
     from .training.trainer import DiffusionTrainer
 
-    model = build_model(opt["model"])
-    random_init_(model.unet, int(opt.get("seed", 0)))
+    with torch.device(device):  # parameters made on the device, not copied there
+        model = build_model(opt["model"])
+    init_weights(model, opt)
     bs = opt["model"]["beta_schedule"]
     ocfg = opt["train"]["optimizer"]
     ema_cfg = opt["train"].get("ema_scheduler") or {}
@@ -131,21 +139,68 @@ def resolve_device(name: str) -> torch.device:
 
 def random_init_(module: nn.Module, seed: int) -> None:
     """Seeded random weights: orthogonal conv/linear kernels and zero biases
-    (the JAX package's initialisers), GroupNorm scale 1 and bias 0."""
+    (the JAX package's initialisers), GroupNorm scale 1 and bias 0.
+
+    nn.init.orthogonal_'s algorithm: normal draws from a CPU generator, made
+    orthogonal by a QR decomposition, which runs on the parameters' device
+    (a full-width model's QRs take seconds on the host; on the card they do
+    not). Move the module before calling it; on the CPU the weights are
+    exactly nn.init.orthogonal_'s.
+    """
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in module.named_parameters():
             if p.ndim >= 2:
-                nn.init.orthogonal_(p, generator=g)
+                rows, cols = p.shape[0], p.numel() // p.shape[0]
+                a = torch.empty(rows, cols).normal_(0, 1, generator=g).to(p.device)
+                q, r = torch.linalg.qr(a if rows >= cols else a.t())
+                q = q * torch.diagonal(r).sign()
+                p.copy_((q if rows >= cols else q.t()).reshape(p.shape))
             elif name.endswith(".weight"):  # GroupNorm scale
                 p.fill_(1.0)
             else:
                 p.zero_()
 
 
-def load_unet_weights(unet: nn.Module, path: str) -> None:
-    """Load a `.npz` of srewd_tpu UNet params (keys = tree paths joined by '/')."""
-    unet.load_state_dict(unet_state_from_jax(load_npz(path)), strict=True)
+def init_weights(model, opt: dict) -> None:
+    """Seeded random weights for the UNet and the encoder (from the config's
+    `seed`, on the device the model is on), then the encoder from
+    `pretrained_model.model_path` when the config names one."""
+    from .training.pretrainer import load_encoder_params
+
+    seed = int(opt.get("seed", 0))
+    random_init_(model.unet, seed)
+    if model.encoder is None:
+        return
+    random_init_(model.encoder, seed + 1)
+    path = (opt["model"].get("pretrained_model") or {}).get("model_path")
+    if path:
+        model.encoder.load_state_dict(load_encoder_params(path), strict=True)
+
+
+def load_model_weights(model, path: str, use_ema: bool = False) -> bool:
+    """Load a model's weights from `path`: a checkpoint directory written by
+    the port's trainer (UNet, encoder and, with `use_ema`, their EMA), or a
+    `.npz` of srewd_tpu UNet params (keys = tree paths joined by '/').
+    Returns whether the EMA weights were loaded: False when asked for and
+    absent."""
+    if path.endswith(".npz"):
+        unet_sd, enc_sd, ema = unet_state_from_jax(load_npz(path)), None, False
+    else:
+        state = CheckpointManager.restore(path, map_location="cpu")
+        ema = use_ema and state.get("ema_params") is not None
+        unet_sd = state["ema_params" if ema else "params"]
+        enc_sd = state.get("ema_encoder_params" if ema else "encoder_params")
+    model.unet.load_state_dict(unet_sd, strict=True)
+    if enc_sd is not None:
+        if model.encoder is None:
+            raise ValueError(f"{path} holds encoder weights, but the config builds no encoder")
+        model.encoder.load_state_dict(enc_sd, strict=True)
+    if use_ema and not ema:
+        logging.getLogger("base").warning(
+            "--use-ema requested but %s carries no EMA state (train with "
+            "train.ema_scheduler.enabled); sampling with the raw weights instead", path)
+    return ema
 
 
 def denormalize(scalers, x: np.ndarray, months: np.ndarray) -> np.ndarray:

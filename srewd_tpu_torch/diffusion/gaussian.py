@@ -14,8 +14,13 @@ Noise is an input. A chain draws its initial image and per-step noises from
 `generator` (a `torch.Generator` on the device), unless the caller hands
 them in: `init` is the initial image, and `noises[i]` the noise of step i,
 where i is the timestep t for DDPM and the index into the DDIM timestep
-sub-sequence for DDIM, exactly the integers the JAX chains `fold_in`. Tests
-feed the noise JAX draws, so both chains see the same numbers.
+sub-sequence for DDIM, exactly the integers the JAX chains `fold_in`
+(DPM-Solver++ is deterministic after `init`). Tests feed the noise JAX
+draws, so both chains see the same numbers.
+
+`keep_every=k` (the reference's `continous` mode) also returns the image
+after every k-th step as [S // k, *shape], S the steps walked; the last
+S mod k steps make no frame, as the JAX chains' segmented scans.
 """
 
 from __future__ import annotations
@@ -109,6 +114,21 @@ def p_sample_step(
     return mean + noise * torch.exp(0.5 * log_var)
 
 
+def _frames(img: torch.Tensor, frames: list, step: int, n_steps: int,
+            keep_every: Optional[int]) -> None:
+    """Keep `img` after step `step` (0-based) of `n_steps` when it closes one
+    of the n_steps // keep_every whole segments."""
+    if keep_every is not None and (step + 1) % keep_every == 0 \
+            and step + 1 <= (n_steps // keep_every) * keep_every:
+        frames.append(img)
+
+
+def _result(img: torch.Tensor, frames: list, keep_every: Optional[int]):
+    if keep_every is None:
+        return img
+    return img, (torch.stack(frames) if frames else img.new_zeros((0, *img.shape)))
+
+
 def sample_chain(
     schedule: Schedule,
     denoise_fn: DenoiseFn,
@@ -119,14 +139,18 @@ def sample_chain(
     init: Optional[torch.Tensor] = None,
     noises: Optional[Sequence[torch.Tensor]] = None,
     clip_denoised: bool = True,
-) -> torch.Tensor:
+    keep_every: Optional[int] = None,
+):
     """Full T-step DDPM reverse chain from pure noise."""
     img = init.to(device=device, dtype=torch.float32) if init is not None else _draw(
         shape, generator, device, None, 0)
-    for t in range(schedule.num_timesteps - 1, -1, -1):
+    n_steps = schedule.num_timesteps
+    frames: list = []
+    for step, t in enumerate(range(n_steps - 1, -1, -1)):
         noise = _draw(shape, generator, device, noises, t) if t > 0 else None
         img = p_sample_step(schedule, denoise_fn, img, t, noise, clip_denoised)
-    return img
+        _frames(img, frames, step, n_steps, keep_every)
+    return _result(img, frames, keep_every)
 
 
 def select_taus(schedule: Schedule, steps: int, spacing: str = "linspace") -> np.ndarray:
@@ -170,7 +194,8 @@ def ddim_sample_chain(
     generator: Optional[torch.Generator] = None,
     init: Optional[torch.Tensor] = None,
     noises: Optional[Sequence[torch.Tensor]] = None,
-) -> torch.Tensor:
+    keep_every: Optional[int] = None,
+):
     """DDIM (arXiv:2010.02502) over a `steps`-long timestep sub-sequence."""
     taus = torch.as_tensor(select_taus(schedule, steps, tau_spacing), device=device)
     a_t = schedule.alphas_cumprod[taus]
@@ -180,7 +205,9 @@ def ddim_sample_chain(
     img = init.to(device=device, dtype=torch.float32) if init is not None else _draw(
         shape, generator, device, None, 0)
     b = shape[0]
-    for i in range(len(taus) - 1, -1, -1):
+    n_steps = len(taus)
+    frames: list = []
+    for step, i in enumerate(range(n_steps - 1, -1, -1)):
         at, ap = a_t[i], a_prev[i]
         eps = denoise_fn(img, lvl_t[i].expand(b)).float()
         x0 = (img - torch.sqrt(1.0 - at) * eps) / torch.sqrt(at)
@@ -197,4 +224,71 @@ def ddim_sample_chain(
         img = torch.sqrt(ap) * x0 + dir_xt
         if i > 0 and eta != 0.0:  # noise gated off at the last step
             img = img + sigma * _draw(shape, generator, device, noises, i)
-    return img
+        _frames(img, frames, step, n_steps, keep_every)
+    return _result(img, frames, keep_every)
+
+
+def _dpm_solver_coefficients(schedule: Schedule, steps: int, tau_spacing: str = "linspace"):
+    """Per-step constants of DPM-Solver++(2M) in execution order (descending
+    tau), float64 numpy from the float32 alphas_cumprod, as the JAX chain
+    computes them: sigma_t / sigma_s, alpha_t, e^{-h} - 1, the multistep
+    weight c, sqrt(acp_s), sigma_s and the noise level sqrt_acp_prev[tau+1].
+
+    e^{-h} = (alpha_s sigma_t) / (sigma_s alpha_t) in closed form, so the
+    final step to acp = 1 (sigma_t = 0) needs no infinite lambda; c[0] = 0
+    (no previous x0) and c[-1] = 0 (first order at the end).
+    """
+    taus = select_taus(schedule, steps, tau_spacing)
+    acp = schedule.alphas_cumprod.double().cpu().numpy()
+    a_src = acp[taus[::-1]]
+    a_dst = np.concatenate([a_src[1:], [1.0]])
+    al_s, sg_s = np.sqrt(a_src), np.sqrt(1.0 - a_src)
+    al_t, sg_t = np.sqrt(a_dst), np.sqrt(1.0 - a_dst)
+    em1 = al_s * sg_t / (sg_s * al_t) - 1.0
+    lam_s = 0.5 * np.log(a_src / (1.0 - a_src))
+    with np.errstate(divide="ignore"):  # final lambda_t = +inf
+        lam_t = 0.5 * np.log(a_dst / np.maximum(1.0 - a_dst, 0.0))
+    h = lam_t - lam_s
+    c = np.zeros_like(h)
+    if len(h) > 2:
+        c[1:-1] = h[1:-1] / (2.0 * h[:-2])
+    lvl = schedule.sqrt_alphas_cumprod_prev.double().cpu().numpy()[taus[::-1] + 1]
+    return np.stack([sg_t / sg_s, al_t, em1, c, np.sqrt(a_src), sg_s, lvl]).astype(np.float32)
+
+
+def dpm_solver_chain(
+    schedule: Schedule,
+    denoise_fn: DenoiseFn,
+    shape: tuple,
+    *,
+    device: torch.device | str,
+    steps: int = 25,
+    clip_denoised: bool = True,
+    tau_spacing: str = "linspace",
+    generator: Optional[torch.Generator] = None,
+    init: Optional[torch.Tensor] = None,
+    keep_every: Optional[int] = None,
+):
+    """DPM-Solver++(2M) (arXiv:2211.01095): the deterministic second-order
+    multistep sampler in the x0 parameterization, over DDIM's timestep
+    sub-sequence and noise levels; one denoiser call per step. The first
+    and the last step are first order (the DDIM eta=0 update); the others
+    extrapolate D = (1 + c) x0_i - c x0_{i-1}."""
+    coef = torch.from_numpy(_dpm_solver_coefficients(schedule, steps, tau_spacing)).to(device)
+    img = init.to(device=device, dtype=torch.float32) if init is not None else _draw(
+        shape, generator, device, None, 0)
+    prev_x0 = torch.zeros_like(img)
+    b = shape[0]
+    n_steps = coef.shape[1]
+    frames: list = []
+    for step in range(n_steps):
+        sig_ratio, alpha_t, em1, c, sqrt_as, sig_s, lvl = coef[:, step]
+        eps = denoise_fn(img, lvl.expand(b)).float()
+        x0 = (img - sig_s * eps) / sqrt_as
+        if clip_denoised:
+            x0 = x0.clamp(-1.0, 1.0)
+        d = (1.0 + c) * x0 - c * prev_x0
+        img = sig_ratio * img - alpha_t * em1 * d
+        prev_x0 = x0
+        _frames(img, frames, step, n_steps, keep_every)
+    return _result(img, frames, keep_every)

@@ -16,6 +16,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention_trainable
 from ..ops.fused_groupnorm import gn_swish_trainable
@@ -51,13 +52,20 @@ class Swish(nn.Module):
         return x * torch.sigmoid(x)
 
 
-def NoiseLevelMLP(dim: int) -> nn.Sequential:
-    """PositionalEncoding -> Linear(4x) -> Swish -> Linear(1x); [B] -> [B, dim].
+class Mish(nn.Module):
+    """x * tanh(softplus(x)): the noise MLP's activation in srdiff and physrdiff."""
+
+    def forward(self, x):
+        return x * torch.tanh(F.softplus(x))
+
+
+def NoiseLevelMLP(dim: int, activation: type = Swish) -> nn.Sequential:
+    """PositionalEncoding -> Linear(4x) -> activation -> Linear(1x); [B] -> [B, dim].
 
     Indexed as the reference's `noise_level_mlp` (Linear layers at .1, .3).
     """
     return nn.Sequential(
-        PositionalEncoding(dim), nn.Linear(dim, dim * 4), Swish(), nn.Linear(dim * 4, dim)
+        PositionalEncoding(dim), nn.Linear(dim, dim * 4), activation(), nn.Linear(dim * 4, dim)
     )
 
 
@@ -214,3 +222,23 @@ class Downsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
 
+
+class ResSE(nn.Module):
+    """Squeeze-excite with a residual, on NHWC: x * sigmoid(MLP(mean_HW(x))) + x.
+
+    Bias-free MLP indexed as the reference's `fc` Sequential (Linear at .0
+    and .2). Its input is cast to the weights' dtype, as flax's compute
+    dtype does; the product with x keeps x's dtype.
+    """
+
+    def __init__(self, channels: int, reduction: int = 2):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.fc = nn.Sequential(
+            nn.Linear(channels, hidden, bias=False), nn.ReLU(),
+            nn.Linear(hidden, channels, bias=False), nn.Sigmoid(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.fc(x.mean(dim=(1, 2)).to(self.fc[0].weight.dtype))
+        return x * y[:, None, None, :] + x

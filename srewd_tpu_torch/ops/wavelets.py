@@ -29,15 +29,24 @@ def haar_dwt2d(x: torch.Tensor):
     return ll, (hh, vv, dd)
 
 
-def haar_dwt_pyramid(x: torch.Tensor, levels: int = 4) -> list:
-    """J-level high-frequency pyramid used as phydiff's cross-attention queries.
+def haar_dwt_pyramid(x: torch.Tensor, levels: int = 4, combine: str = "concat") -> list:
+    """J-level high-frequency pyramid (the cross-attention queries).
 
-    Level j is the channel-concat [H, V, D], [B, H/2^j, W/2^j, 3C] (the JAX
-    function's combine="concat"; resdiff's "sum" waits for its port).
+    combine="sum"    — H+V+D per level, [B, H/2^j, W/2^j, C] (resdiff)
+    combine="concat" — channel-concat [H, V, D], [B, ., ., 3C] (phydiff,
+                       physrdiff)
+    combine="none"   — list of (H, V, D) tuples (the SimpleCNN loss)
     """
     out = []
     ll = x
     for _ in range(levels):
         ll, (hh, vv, dd) = haar_dwt2d(ll)
-        out.append(torch.cat([hh, vv, dd], dim=-1))
+        if combine == "sum":
+            out.append(hh + vv + dd)
+        elif combine == "concat":
+            out.append(torch.cat([hh, vv, dd], dim=-1))
+        elif combine == "none":
+            out.append((hh, vv, dd))
+        else:
+            raise ValueError(f"unknown combine: {combine}")
     return out

@@ -47,9 +47,12 @@ class CheckpointManager:
     @staticmethod
     def restore(path: str, map_location=None) -> dict:
         """The state saved at `path` (a checkpoint directory), tensors on
-        `map_location`. Reads only files this program wrote."""
+        `map_location`. Reads only files this program wrote. The file is
+        memory-mapped: its tensors are read once, on their way to
+        `map_location` (or where the caller copies them), not first into
+        host buffers of their own."""
         return torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
-                          map_location=map_location, weights_only=True)
+                          map_location=map_location, weights_only=True, mmap=True)
 
     def all_checkpoints(self) -> list[tuple[int, int, str]]:
         out = []

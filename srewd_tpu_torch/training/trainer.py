@@ -15,6 +15,12 @@ from, is seeded per step too. A resumed run therefore repeats the first
 run's steps without any saved generator state; `run_training` also resumes
 inside an epoch, skipping the batches the checkpoint's steps consumed.
 
+The encoder (srdiff, physrdiff, and resdiff/phydiff with one) is part of
+the trainer's state: in the optimizer only when unlocked, and always in the
+checkpoint, in resume and in the EMA (JAX's EMA maps over the whole params
+tree). The UNet's entries keep their names (`params`, `ema_params`); the
+encoder's are `encoder_params` and `ema_encoder_params`.
+
 Validation samples through a separate copy of the model, loaded with the
 trainer's weights or the EMA, never through the trainer's own modules.
 Left out (ROADMAP.md Queue 1): the device data cache and prefetcher, wandb,
@@ -86,14 +92,20 @@ class DiffusionTrainer:
         self.seed = int(seed)
         self.step = 0
         self.epoch = 0
-        model.unet.to(self.device)
-        unet = model.unet
+        model.to(self.device)
+        unet, encoder = model.unet, model.encoder
         # finetune_norm: only the GroupNorm affine parameters are stepped
         self.trainable = ([p for _, p in norm_parameters(unet)] if finetune_norm
                           else list(unet.parameters()))
+        if encoder is not None and not model.lock_encoder and not finetune_norm:
+            self.trainable += list(encoder.parameters())
+        if encoder is not None and model.lock_encoder:
+            encoder.requires_grad_(False)
         self.optimizer = get_optimizer(optimizer, self.trainable, lr)
-        self.ema = ({k: v.detach().clone() for k, v in unet.state_dict().items()}
-                    if ema_decay is not None else None)
+        self.ema = self.ema_encoder = None
+        if ema_decay is not None:
+            self.ema = _copy_state(unet)
+            self.ema_encoder = _copy_state(encoder) if encoder is not None else None
         self.ckpt = CheckpointManager(checkpoint_dir, keep=checkpoint_keep) if checkpoint_dir else None
         self._generator = torch.Generator(device=self.device)
         self._val_model: Optional[DiffusionModel] = None
@@ -103,8 +115,12 @@ class DiffusionTrainer:
         state = {"params": self.model.unet.state_dict(),
                  "opt_state": self.optimizer.state_dict(),
                  "step": self.step, "epoch": self.epoch}
+        if self.model.encoder is not None:
+            state["encoder_params"] = self.model.encoder.state_dict()
         if self.ema is not None:
             state["ema_params"] = self.ema
+        if self.ema_encoder is not None:
+            state["ema_encoder_params"] = self.ema_encoder
         return state
 
     def save(self) -> Optional[str]:
@@ -116,10 +132,16 @@ class DiffusionTrainer:
         """Restore params, optimizer state, EMA, step and epoch."""
         state = CheckpointManager.restore(path, map_location=self.device)
         self.model.unet.load_state_dict(state["params"], strict=True)
+        encoder = self.model.encoder
+        if encoder is not None:
+            encoder.load_state_dict(state["encoder_params"], strict=True)
         self.optimizer.load_state_dict(state["opt_state"])
         if self.ema is not None:
             src = state.get("ema_params") or state["params"]
             self.ema = {k: v.detach().clone().to(self.device) for k, v in src.items()}
+        if self.ema_encoder is not None:
+            src = state.get("ema_encoder_params") or state["encoder_params"]
+            self.ema_encoder = {k: v.detach().clone().to(self.device) for k, v in src.items()}
         self.step = int(state["step"])
         self.epoch = int(state["epoch"])
 
@@ -137,7 +159,7 @@ class DiffusionTrainer:
         self.model.unet.load_state_dict({k: v for k, v in loaded.items() if k in own},
                                         strict=False)
         if self.ema is not None:
-            self.ema = {k: v.detach().clone() for k, v in self.model.unet.state_dict().items()}
+            self.ema = _copy_state(self.model.unet)
 
     # ------------------------------------------------------------------ steps
     def _device_batch(self, batch: dict) -> dict:
@@ -165,29 +187,43 @@ class DiffusionTrainer:
 
     @torch.no_grad()
     def _ema_update(self) -> None:
-        """ema = ema * decay + params * (1 - decay), leaf by leaf."""
-        params = self.model.unet.state_dict()
-        keys = [k for k, v in params.items() if v.is_floating_point()]
-        ema = [self.ema[k] for k in keys]
-        torch._foreach_mul_(ema, self.ema_decay)
-        torch._foreach_add_(ema, [params[k] for k in keys], alpha=1.0 - self.ema_decay)
+        """ema = ema * decay + params * (1 - decay), leaf by leaf, over the
+        UNet and the encoder."""
+        pairs = [(self.ema, self.model.unet)]
+        if self.ema_encoder is not None:
+            pairs.append((self.ema_encoder, self.model.encoder))
+        for ema_state, module in pairs:
+            params = module.state_dict()
+            keys = [k for k, v in params.items() if v.is_floating_point()]
+            ema = [ema_state[k] for k in keys]
+            torch._foreach_mul_(ema, self.ema_decay)
+            torch._foreach_add_(ema, [params[k] for k in keys], alpha=1.0 - self.ema_decay)
 
     @torch.no_grad()
     def sample_batch(self, batch: dict, use_ema: bool = False) -> torch.Tensor:
         """Super-resolve a batch with the trainer's sampler settings, through a
         copy of the model loaded with the current weights (or the EMA)."""
-        if self._val_model is None:
-            self._val_model = copy.deepcopy(self.model)
-            for p in self._val_model.unet.parameters():
-                p.grad = None
-                p.requires_grad_(False)
-        src = self.ema if (use_ema and self.ema is not None) else self.model.unet.state_dict()
-        self._val_model.unet.load_state_dict(src, strict=True)
+        val = self._val_model
+        if val is None:
+            val = self._val_model = copy.deepcopy(self.model)
+            for module in (m for m in (val.unet, val.encoder) if m is not None):
+                for p in module.parameters():
+                    p.grad = None
+                    p.requires_grad_(False)
+        ema = use_ema and self.ema is not None
+        val.unet.load_state_dict(self.ema if ema else self.model.unet.state_dict(), strict=True)
+        if val.encoder is not None:
+            val.encoder.load_state_dict(
+                self.ema_encoder if ema else self.model.encoder.state_dict(), strict=True)
         b = self._device_batch(batch)
         gen = torch.Generator(device=self.device).manual_seed(
             step_seed(self.seed, _VAL_STREAM + self.step))
-        return self._val_model.generate_sr({"LR": b["LR"]}, self.schedule_val, generator=gen,
-                                           **self.sampler_kwargs)
+        return val.generate_sr({"LR": b["LR"]}, self.schedule_val, generator=gen,
+                               **self.sampler_kwargs)
+
+
+def _copy_state(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
 def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,

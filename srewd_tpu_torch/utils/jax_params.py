@@ -1,18 +1,27 @@
-"""Weight bridge between srewd_tpu's flax WeatherUNet param tree and the
-port's state_dict, in both directions.
+"""Weight bridge between srewd_tpu's flax param trees and the port's
+state_dicts, in both directions: the WeatherUNet of every architecture, and
+the SimpleCNN and RRDBNet encoders.
 
 The inverse of srewd_tpu/utils/torch_convert.py. Flax names modules in call
 order: `ResnetBlockWithAttn_k` counts across downs, mid and ups;
 `Downsample_j` / `Upsample_j` count the resampling convs; `CrossAttention_i`
-is the i-th downsample boundary; `Conv_0` at the top is the stem and
-`Block_0` the final conv. The structure (levels, res blocks, mid blocks) is
-read off the tree itself.
+is the i-th downsample boundary; `Conv_0` at the top is the stem,
+`Block_0` the final conv, `FDInfoSpliter_0` the spliter (`Dense_0`,
+`ResSE_{0,1,2}`, `Conv_0`) and `ConvTranspose_0` the RRDB projection. The
+structure (levels, res blocks, mid blocks) is read off the tree itself.
+Encoders: SimpleCNN `Conv_{0,1,2}`; RRDBNet `Conv_0` (first),
+`RRDB_i/ResidualDenseBlock5C_r/Conv_c`, then `Conv_1..Conv_5` (trunk,
+upconv1, upconv2, HRconv, last), as `torch_convert.convert_simple_cnn_state`
+and `convert_rrdb_state` name them.
 
 Layouts: Conv [kh,kw,I,O] -> [O,I,kh,kw]; Dense [I,O] -> Linear [O,I];
-GroupNorm `scale` -> `weight`. Gradients and optimizer moments have their
-parameters' layouts, so the same maps carry them: `unet_state_from_jax` of
-a JAX gradient tree gives the port's gradients by parameter name, and
-`jax_tree_from_unet_state(grads, like=params_tree)` the other way.
+ConvTranspose [kh,kw,I,O] -> ConvTranspose2d [I,O,kh,kw] with the kernel
+flipped (flax correlates where torch convolves); GroupNorm `scale` ->
+`weight`. Gradients and optimizer moments have their parameters' layouts,
+so the same maps carry them: `unet_state_from_jax` of a JAX gradient tree
+gives the port's gradients by parameter name, and
+`jax_tree_from_unet_state(grads, like=params_tree)` the other way (the
+`encoder_*` pair likewise).
 
 `load_npz` reads a `.npz` whose keys are the tree paths joined by "/".
 """
@@ -61,11 +70,13 @@ class _Tree:
 # JAX layout -> torch layout, and back, per kind of leaf
 _TO_TORCH = {
     "conv": lambda w: np.transpose(w, (3, 2, 0, 1)),
+    "convT": lambda w: np.transpose(w[::-1, ::-1], (2, 3, 0, 1)),
     "lin": lambda w: np.transpose(w, (1, 0)),
     "same": lambda w: w,
 }
 _TO_JAX = {
     "conv": lambda w: np.transpose(w, (2, 3, 1, 0)),
+    "convT": lambda w: np.transpose(w, (2, 3, 0, 1))[::-1, ::-1],
     "lin": lambda w: np.transpose(w, (1, 0)),
     "same": lambda w: w,
 }
@@ -94,9 +105,16 @@ def _lin(leaf):
     return (leaf[0], "lin")
 
 
+def _check_consumed(t: _Spec) -> "OrderedDict[str, tuple]":
+    unused = t.t.leaves() - t.t.used
+    if unused:
+        raise ValueError(f"params not consumed by the port: {sorted('/'.join(p) for p in unused)}")
+    return t.map
+
+
 def _key_map(tree: dict) -> "OrderedDict[str, tuple]":
     """port state_dict key -> (JAX tree path, layout kind) for a flax
-    WeatherUNet tree (sr3 or phydiff). Raises if a leaf is left unused."""
+    WeatherUNet tree (any variant). Raises if a leaf is left unused."""
     t = _Spec(tree)
     sd = t.map
 
@@ -138,7 +156,10 @@ def _key_map(tree: dict) -> "OrderedDict[str, tuple]":
     n_down = sum(1 for k in tree if k.startswith("Downsample_"))
     n_rba = sum(1 for k in tree if k.startswith("ResnetBlockWithAttn_"))
     n_levels = n_down + 1
-    n_mid = 2 if t.has("CrossAttention_0") else 1  # phydiff: attn + plain
+    # every variant but sr3 (no cross-attention, spliter or RRDB projection)
+    # has an attention block and a plain block in the middle
+    n_mid = 2 if any(t.has(k) for k in ("CrossAttention_0", "FDInfoSpliter_0",
+                                          "ConvTranspose_0")) else 1
     res_blocks = ((n_rba - n_mid) // n_levels - 1) // 2
     if n_levels * (2 * res_blocks + 1) + n_mid != n_rba:
         raise ValueError(f"cannot read a UNet layout off {n_rba} ResnetBlockWithAttn "
@@ -176,11 +197,47 @@ def _key_map(tree: dict) -> "OrderedDict[str, tuple]":
         sd[f"hf_ca_list.{i}.out.bias"] = t.get(ca, "Conv_2", "bias")
         i += 1
     block("final_conv", "Block_0")
+    if t.has("FDInfoSpliter_0"):
+        fd = "FDInfoSpliter_0"
+        sd["fd_spliter.noise_func.weight"] = _lin(t.get(fd, "Dense_0", "kernel"))
+        sd["fd_spliter.noise_func.bias"] = t.get(fd, "Dense_0", "bias")
+        for j, name in enumerate(("noise_resSE", "sigma_resSE", "HF_guided_resSE")):
+            for fc, dense in ((0, "Dense_0"), (2, "Dense_1")):
+                sd[f"fd_spliter.{name}.fc.{fc}.weight"] = _lin(
+                    t.get(fd, f"ResSE_{j}", dense, "kernel"))
+        sd["fd_spliter.channel_transform.weight"] = _conv(t.get(fd, "Conv_0", "kernel"))
+        sd["fd_spliter.channel_transform.bias"] = t.get(fd, "Conv_0", "bias")
+    if t.has("ConvTranspose_0"):
+        sd["cond_proj.weight"] = (t.get("ConvTranspose_0", "kernel")[0], "convT")
+        sd["cond_proj.bias"] = t.get("ConvTranspose_0", "bias")
+    return _check_consumed(t)
 
-    unused = t.t.leaves() - t.t.used
-    if unused:
-        raise ValueError(f"params not consumed by the port: {sorted('/'.join(p) for p in unused)}")
-    return sd
+
+def _encoder_key_map(tree: dict) -> "OrderedDict[str, tuple]":
+    """The same for a flax SimpleCNN or RRDBNet tree (an RRDBNet has RRDB_0)."""
+    t = _Spec(tree)
+    sd = t.map
+
+    def conv(key, *path):
+        sd[f"{key}.weight"] = _conv(t.get(*path, "kernel"))
+        sd[f"{key}.bias"] = t.get(*path, "bias")
+
+    if not t.has("RRDB_0"):
+        for i in range(3):
+            conv(f"conv{i + 1}", f"Conv_{i}")
+        return _check_consumed(t)
+    conv("conv_first", "Conv_0")
+    i = 0
+    while t.has(f"RRDB_{i}"):
+        for r in range(3):
+            for c in range(5):
+                conv(f"RRDB_trunk.{i}.RDB{r + 1}.conv{c + 1}", f"RRDB_{i}",
+                     f"ResidualDenseBlock5C_{r}", f"Conv_{c}")
+        i += 1
+    for j, name in enumerate(("trunk_conv", "upconv1", "upconv2", "HRconv", "conv_last"),
+                             start=1):
+        conv(name, f"Conv_{j}")
+    return _check_consumed(t)
 
 
 def _get(tree: dict, path: tuple) -> np.ndarray:
@@ -190,25 +247,15 @@ def _get(tree: dict, path: tuple) -> np.ndarray:
     return np.asarray(node)
 
 
-def unet_state_from_jax(tree: dict) -> "OrderedDict[str, torch.Tensor]":
-    """Map a flax WeatherUNet tree (params, or anything of their layout:
-    gradients, optimizer moments) to the port's state_dict keys.
-
-    Raises if a leaf of the tree is left unused; `load_state_dict(strict=True)`
-    then catches any key the port expects and the tree lacks.
-    """
+def _state(spec: Mapping, tree: dict) -> "OrderedDict[str, torch.Tensor]":
     return OrderedDict(
         (key, torch.from_numpy(np.ascontiguousarray(_TO_TORCH[kind](_get(tree, path)),
                                                     dtype=np.float32)))
-        for key, (path, kind) in _key_map(tree).items()
+        for key, (path, kind) in spec.items()
     )
 
 
-def jax_tree_from_unet_state(state: Mapping, like: dict) -> dict:
-    """The inverse: a port state_dict (or gradients / moments by parameter
-    name) as a nested dict of float32 numpy arrays in the layout of the JAX
-    tree `like` (only its structure is read)."""
-    spec = _key_map(like)
+def _tree(spec: Mapping, state: Mapping) -> dict:
     if set(spec) != set(state):
         raise ValueError(f"keys differ: only in the port {sorted(set(state) - set(spec))}, "
                          f"only in the tree {sorted(set(spec) - set(state))}")
@@ -221,6 +268,33 @@ def jax_tree_from_unet_state(state: Mapping, like: dict) -> dict:
         v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
         node[path[-1]] = np.ascontiguousarray(_TO_JAX[kind](v), dtype=np.float32)
     return out
+
+
+def unet_state_from_jax(tree: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax WeatherUNet tree (params, or anything of their layout:
+    gradients, optimizer moments) to the port's state_dict keys.
+
+    Raises if a leaf of the tree is left unused; `load_state_dict(strict=True)`
+    then catches any key the port expects and the tree lacks.
+    """
+    return _state(_key_map(tree), tree)
+
+
+def jax_tree_from_unet_state(state: Mapping, like: dict) -> dict:
+    """The inverse: a port state_dict (or gradients / moments by parameter
+    name) as a nested dict of float32 numpy arrays in the layout of the JAX
+    tree `like` (only its structure is read)."""
+    return _tree(_key_map(like), state)
+
+
+def encoder_state_from_jax(tree: dict) -> "OrderedDict[str, torch.Tensor]":
+    """unet_state_from_jax for a SimpleCNN or RRDBNet tree."""
+    return _state(_encoder_key_map(tree), tree)
+
+
+def jax_tree_from_encoder_state(state: Mapping, like: dict) -> dict:
+    """jax_tree_from_unet_state for a SimpleCNN or RRDBNet tree."""
+    return _tree(_encoder_key_map(like), state)
 
 
 def optimizer_moments(optimizer, module) -> dict:

@@ -117,3 +117,98 @@ def test_sampler_settings_from_config():
     assert sampler_kwargs(opt({"sampler": "ddim", "ddim_eta": 0.0, "ddim_steps": 25,
                                "clip_denoised": False})) == {
         "sampler": "ddim", "ddim_steps": 25, "ddim_eta": 0.0, "clip_denoised": False}
+
+
+def _toy_data(cfg, root, batch_size):
+    cfg["data"].update(
+        dataroot=str(root / "data"), num_workers=2, batch_size=batch_size,
+        val_batch_size=batch_size, train_min_date="2017-01-01-00",
+        train_max_date="2017-01-02-00", val_min_date="2017-01-02-00",
+        val_max_date="2017-01-03-00", months_subset=[1], transform_groups={"january": [1]})
+
+
+@pytest.fixture
+def single_thread_env():
+    """One intra-op thread for a test of toy-size CLI runs: they gain nothing
+    from more, and the suite's other workers keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield {**os.environ, "OMP_NUM_THREADS": "1"}
+    torch.set_num_threads(n)
+
+
+def test_pretrain_then_srdiff_train_then_ensemble_sample(env_root, single_thread_env):
+    """The RRDB pretrained by `python -m srewd_tpu_torch.pretrain` conditions
+    an srdiff trained by the port; `sample -m <checkpoint> --use-ema
+    --sampler dpm --ensemble 2` writes the members' Kelvin mean to sr/ and
+    their Kelvin std to sr_std/. Member 0 draws from the stream a single
+    run draws from, so with two members std = |mean - member 0|."""
+    from srewd_tpu_torch import pretrain, sample, train
+    from srewd_tpu_torch.cli import Config, build_trainer
+    from srewd_tpu_torch.configs.config import load_commented_json
+    from srewd_tpu_torch.training.pretrainer import load_encoder_params
+
+    cfgs = os.path.join(REPO, "configs", "experiment_configs")
+    pre = load_commented_json(os.path.join(cfgs, "rrdb", "pretrained_rrdb_17block_base.json"))
+    _toy_data(pre, env_root, 8)
+    pre["model"].update(hidden_size=8, num_block=2)
+    pre["train"]["epoch"] = 1
+    pre["path"]["experiments_folder_path"] = str(env_root / "pre")
+    (env_root / "pre.json").write_text(json.dumps(pre))
+    records = pretrain.main(["-c", str(env_root / "pre.json"), "--device", "cpu"])
+    assert len(records) == 1 and records[0]["steps"] == 3  # 24 train hours at batch 8
+    assert np.isfinite(records[0]["train_loss"]) and np.isfinite(records[0]["val"]["RMSE"])
+    ckpt = records[0]["checkpoint"]
+    assert os.path.basename(ckpt) == "pretrain_rrdb_E0"
+    # resumed with a second epoch: the optimizer and the counters come back
+    pre["train"]["epoch"] = 2
+    pre["path"]["resume_state"] = ckpt
+    (env_root / "pre_resume.json").write_text(json.dumps(pre))
+    (again,) = pretrain.main(["-c", str(env_root / "pre_resume.json"), "--device", "cpu"])
+    assert again["epoch"] == 1 and again["steps"] == 3
+    assert again["checkpoint"] == ckpt.replace("_E0", "_E1")
+    assert torch.load(os.path.join(again["checkpoint"], "state.pt"))["iteration"] == 6
+
+    cfg = load_commented_json(os.path.join(cfgs, "srdiff", "srdiff+rrdb_unlocked.json"))
+    _toy_data(cfg, env_root, 2)
+    cfg["model"]["unet"].update(inner_channel=16, norm_groups=8, channel_multiplier=[1, 2, 4],
+                                attn_res=[8], res_blocks=1)
+    cfg["model"]["diffusion"].update(image_height=32, image_width=64)
+    cfg["model"]["pretrained_model"].update(model_path=ckpt, hidden_size=8, num_block=2)
+    cfg["path"]["experiments_folder_path"] = str(env_root / "srdiff")
+    cfg["train"].update(n_iter=2, print_freq=1, val_freq=100, save_checkpoint_freq=2)
+    cfg["train"]["ema_scheduler"].update(enabled=True, step_start_ema=0, ema_decay=0.5)
+    (env_root / "srdiff.json").write_text(json.dumps(cfg))
+
+    opt = Config(str(env_root / "srdiff.json"), phase="train", experiment=False).get_opt()
+    trainer = build_trainer(opt, torch.device("cpu"))  # the encoder comes from the pretrain
+    for k, v in load_encoder_params(ckpt).items():
+        torch.testing.assert_close(trainer.model.encoder.state_dict()[k], v, rtol=0, atol=0)
+    result = train.main(["-c", str(env_root / "srdiff.json"), "--device", "cpu"])
+    assert [s for s, _ in result["losses"]] == [1, 2]
+    assert all(np.isfinite(v) for _, v in result["losses"])
+    (run,) = [p for p in (env_root / "srdiff" / "experiments").iterdir()]
+    model_ckpt = str(run / "checkpoint" / "I2_E1")
+
+    common = ["-c", str(env_root / "srdiff.json"), "-m", model_ckpt, "--use-ema",
+              "--sampler", "dpm", "--ddim-steps", "2", "--date-range", "2017-01-02-00",
+              "2017-01-02-03", "--batch-size", "2", "--save-npy", "--device", "cpu"]
+    out = env_root / "ens"
+    r = subprocess.run([sys.executable, "-m", "srewd_tpu_torch.sample", *common,
+                        "--ensemble", "2", "-o", str(out)],
+                       capture_output=True, text=True, timeout=300, cwd=REPO,
+                       env=single_thread_env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    summary = json.loads((out / "summary.json").read_text())
+    assert summary["ema"] and summary["ensemble"] == 2 and summary["sampler"] == "dpm"
+    single = sample.main([*common, "-o", str(env_root / "single")])
+    assert single["ema"] and single["fields"] == 3
+    names = [f"2017-01-02-{h:02d}.npy" for h in range(3)]
+    assert sorted(os.listdir(out / "sr")) == names == sorted(os.listdir(out / "sr_std"))
+    for name in names:
+        mean, std = np.load(out / "sr" / name), np.load(out / "sr_std" / name)
+        member0 = np.load(env_root / "single" / "sr" / name)
+        assert mean.shape == std.shape == (32, 64, 1)
+        assert np.all(np.isfinite(mean)) and 200.0 < mean.min() and mean.max() < 340.0
+        assert std.max() > 0  # the members differ
+        np.testing.assert_allclose(std, np.abs(mean - member0), atol=1e-3)

@@ -182,6 +182,15 @@ def test_no_module_of_the_port_imports_jax_or_srewd_tpu():
     assert not bad, bad
 
 
+def test_import_scan_covers_the_modules_of_every_architecture():
+    """The scans above walk the whole package; the modules of the encoders,
+    the spliter, the losses and the pretraining entry point are among them."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for rel in ("models/fd_info_spliter.py", "models/simple_cnn.py", "models/rrdb.py",
+                "ops/losses.py", "training/pretrainer.py", "pretrain.py"):
+        assert rel.replace("/", os.sep) in scanned, rel
+
+
 def test_importing_the_whole_port_loads_no_jax_package_module():
     mods = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")

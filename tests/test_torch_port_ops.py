@@ -324,3 +324,43 @@ def test_chip_smoke_kernel_names():
     assert not chip_smoke.needs_hmma("flash_bwd_delta_kernel<float>")
     assert chip_smoke.needs_hmma("flash_fwd_kernel<float, (int)64, (int)4, (int)1, (int)64>")
     assert chip_smoke.needs_hmma("flash_bwd_dq_kernel<float, (int)128>")
+
+
+@pytest.mark.parametrize("fault", ["none", "differs_on_repeat", "nan"])
+def test_chip_smoke_stress_watch_flags_a_faulty_kernel(monkeypatch, fault):
+    """`chip_smoke.py --stress` wraps the kernel wrappers: each launch is
+    made twice and held against its plain version. A stand-in K2 that
+    repeats differently, or gives NaN, must be flagged; an exact one not;
+    the wrapping must be undone afterwards."""
+    import chip_smoke
+    from srewd_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+
+    def k2(q, k, v, o, lse, do, scale):
+        calls.append(None)
+        dq, dk, dv = fa.attention_backward_reference(q, k, v, do, scale)
+        if fault == "differs_on_repeat":
+            dq = dq + 1e-3 * len(calls)
+        elif fault == "nan":
+            dk = dk.clone()
+            dk[0, 3, 5] = float("nan")
+        return dq, dk, dv
+
+    monkeypatch.setattr(fa, "flash_attention_backward", k2)
+    log = {}
+    unwrap = chip_smoke._watch_kernels(torch, log)
+    try:
+        g = torch.Generator().manual_seed(0)
+        q, k, v, do = (torch.randn(2, 16, 64, generator=g) for _ in range(4))
+        out = fa.flash_attention_backward(q, k, v, None, None, do, 0.125)
+    finally:
+        unwrap()
+    assert fa.flash_attention_backward is k2
+    assert len(calls) == 2 and len(out) == 3
+    rec = log["flash_attention_backward"]
+    assert rec["calls"] == 1
+    assert rec["differ_on_repeat"] == (fault != "none")  # NaN != NaN as well
+    assert rec["nonfinite"] == (fault == "nan")
+    assert rec["over_tol"] == (fault == "differs_on_repeat")
+    assert len(rec["bad"]) == (fault != "none")

@@ -54,7 +54,8 @@ from srewd_tpu_torch.training.trainer import DiffusionTrainer
 from srewd_tpu_torch.utils.jax_params import (
     _key_map, jax_tree_from_unet_state, optimizer_moments, unet_state_from_jax)
 
-from test_torch_port_model import H, W, toy_model_cfg
+from test_torch_port_model import (  # noqa: F401  (one_torch_thread: autouse)
+    H, W, one_torch_thread, toy_model_cfg)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCHED = {"schedule": "linear", "n_timestep": 1000, "linear_start": 1e-6, "linear_end": 1e-2}
