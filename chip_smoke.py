@@ -2,12 +2,16 @@
 """Drive the PyTorch port's sampling, training and pretraining paths of
 every residual architecture on one CUDA card and check them.
 
-    python3 chip_smoke.py              # the smoke run, phases 1-10
-    python3 chip_smoke.py --profile    # phases 1-2, then the UNet profile
-    python3 chip_smoke.py --stress N   # phases 1-6, then steps 7 and 10 N times each
+    python3 chip_smoke.py                  # the smoke run, phases 1-12
+    python3 chip_smoke.py --profile        # phases 1-2, then the UNet profile
+    python3 chip_smoke.py --train-kernels  # phases 1-2, the shapes, the bf16 step's kernels
+    python3 chip_smoke.py --stress N       # phases 1-6, then steps 7 and 10 N times each
+    python3 chip_smoke.py --bf16-step N    # phases 1-2, then phase 11's step at N draw seeds
 
 Phases, one JSON line each (`t_sec`: seconds since the start); any failure
-exits non-zero before the result:
+exits non-zero before the result. Every line, and a failure's traceback,
+is also written to chiprun_out/chip_smoke.jsonl (chip_smoke_<option>.jsonl
+with an option), whole:
   1. device   — a CUDA card must be present (else exit 2, no result).
   2. build    — nvcc builds csrc/flash_attention.cu (K1),
                 csrc/flash_attention_bwd.cu (K2) and csrc/gn_swish.cu (K3
@@ -75,6 +79,9 @@ exits non-zero before the result:
                 relative difference <= 1e-5, every parameter's gradient
                 relative RMSE <= 1e-3 (leaves whose gradient norm is under
                 1e-6 of the largest: absolute RMSE against the largest norm).
+                Beyond a bound, the line also gives the five worst leaves'
+                gradients recomputed in float64 on the plain path and each
+                side's distance to them (`float64`), before it fails.
   8. pretrain — `srewd_tpu_torch.pretrain.main` for one epoch of the shipped
                 RRDBNet (nf 64, 17 blocks, batch 32, amsgrad) and SimpleCNN
                 (batch 128) configs on a 7-day synthetic tree: losses and
@@ -111,19 +118,55 @@ exits non-zero before the result:
                 RMSE); the kernel sides launch K1 and K3 (and, in the step,
                 K2 and the K3 backward) and call no plain version, the
                 plain sides launch no kernel.
-  --profile — instead of 3-10: per dtype, one full-width UNet call by host
+ 11. bf16     — `cli.build_trainer(opt, device, dtype=bfloat16)` on phase 6's
+                phydiff config and phase 9's srdiff with its RRDB unlocked,
+                batch 4, EMA on: one step, then 5 timed (steps/s beside
+                phases 6 and 9's float32 on the same settings); every
+                parameter with a finite gradient, every parameter, Adam
+                moment and EMA entry float32, the loss finite, K1, K2, K3 and
+                its backward launched exactly (calls per UNet call, phase 3)
+                per step and no plain version; a DPM-5 bf16 chain through the
+                trained model leaves the master weights float32 and equal.
+                Then phase 7's step in bf16, kernels against plain: loss
+                within 2e-3 relative, every leaf |g_k - g_p| <= 3 max(|g_p -
+                g_f32|, one bf16 ulp of g_p) (+1e-6 of the largest leaf),
+                relative RMSE over all leaves <= 0.1 (tests/test_torch_port_bf16.py's
+                rule against JAX, floored at bf16's resolution; PERF.md), with
+                phase 7's float64 diagnostic beyond it.
+ 12. bench    — `srewd_tpu_torch.bench`'s run (DDIM-50, one timed chain, sr3
+                bf16 and phydiff float32) and `bench_train`'s (sr3, batch 16,
+                bf16, 10 steps, 0 < MFU < 1; its plain versions run once, on
+                the meta device, for the FLOP count), then one more batch-16
+                step with every kernel launch repeated and held against its
+                plain version (bf16: two ulps); `run_training` of phydiff in
+                bf16 for 6 steps with a torch.profiler window on steps 4-6
+                under build/profile/ (the trace must show the 3 steps and
+                K1, K2, K3 and its backward; busy ms and idle share of the
+                window), and for 4 steps with `train.device_data_cache`
+                against the same 4 through the prefetcher (losses equal bit
+                for bit).
+  --profile — instead of 3-12: per dtype, one full-width UNet call by host
                 clock and by torch.profiler's device time per kernel, the card's
                 idle share, and one DDIM-50 generate_sr (see profile_unet).
-  --stress N — instead of 7-10, after phases 1-6 as in the smoke run:
+  --train-kernels — instead of 3-12: per batch 4 and 16, bf16, K1 with its
+                row LSE, K2, K3 with its statistics and K3's backward per
+                phydiff training step, with plain and library times and the
+                bound (see train_kernel_table); then a bf16 and a float32
+                phydiff step profiled (profile_train_steps).
+  --stress N — instead of 7-12, after phases 1-6 as in the smoke run:
                 phase 7's and phase 10's training steps N times each with
                 the cuDNN settings phase 6 leaves, every kernel
                 launch repeated (bit-identical) and held against its plain
                 version call by call, odd repeats in NaN-poisoned memory
                 (see stress_step).
+  --bf16-step N — instead of 3-12: phase 11's bf16 step, kernels against
+                plain under the same bound, at draw seeds 3 .. N+2 (phase 11
+                takes seed 3), with the cuDNN settings phase 11 meets.
 Then the kernels' summary line, the card's name and power limit, and the
 result line. In the summary line, `launches` counts the kernel's launches in
 the main-path runs, each counted from 0: phase 4, the first run of phase 6,
-phase 8 and phase 9 (`launches_by_phase` splits them); `ms`, `plain_ms`,
+phases 8, 9, 11 and 12 (`launches_by_phase` splits them; the launches that
+hold a kernel against its plain version are not among them); `ms`, `plain_ms`,
 `library_ms` and `bound_ms` are device time per main-path unit, float32:
 one UNet call at batch 8 for K1 and K3, one training step at batch 4 for K2
 and the K3 backward (per shape: calls x the median time of one call); K3's
@@ -215,11 +258,26 @@ def check(cond: bool, what: str) -> None:
 
 
 T0 = time.perf_counter()
+# every line the run prints, also kept whole in chiprun_out/chip_smoke.jsonl
+# (opened once a card is found): a remote runner may return only the end of
+# the output, and a failing run's phase lines are what tells its cause
+KEEP = {"file": None}
+
+
+def keep(line: str) -> None:
+    if KEEP["file"] is not None:
+        KEEP["file"].write(line + "\n")
+        KEEP["file"].flush()
+
+
+def say(line: str) -> None:
+    print(line, flush=True)
+    keep(line)
 
 
 def emit(obj: dict) -> None:
     """One JSON line, with the seconds since the script started (t_sec)."""
-    print(json.dumps({**obj, "t_sec": round(time.perf_counter() - T0, 1)}), flush=True)
+    say(json.dumps({**obj, "t_sec": round(time.perf_counter() - T0, 1)}))
 
 
 def nvidia_smi() -> str:
@@ -376,8 +434,8 @@ def arch_shapes(torch, device) -> tuple:
         model = full_width_model(torch, arch, device)
         a, n = main_path_shapes(torch, model, device)
         f32_ms = unet_call_ms(torch, model, device)
-        # the compute dtype build_model(dtype=bfloat16) sets: the UNet's
-        # weights are cast in place by the next chain, the encoder's per call
+        # the compute dtype build_model(dtype=bfloat16) sets: the next chain
+        # casts the UNet's weights once into its shadow, the encoder per call
         for m in (model.unet, model.encoder):
             if m is not None:
                 m.dtype = torch.bfloat16
@@ -453,24 +511,26 @@ def compare_attention(torch, attn_shapes, device) -> dict:
                 _add(k1, calls, ms, plain_ms, lib_ms, b, b_cc)
             del q, k, v, out
 
-            # K2 at the training batch, with the forward's row log-sum-exp
+            # K2 at the training batch, with the forward's row log-sum-exp and
+            # float32 O
             q, k, v = attention_inputs(torch, kind, TRAIN_BATCH, n, d, dtype, device, g)
             do = torch.randn(TRAIN_BATCH, n, d, device=device, generator=g).to(dtype)
             o_plain_fwd = flash_attention(q, k, v, scale)
-            o, lse = flash_attention(q, k, v, scale, return_lse=True)
+            o, lse, o32 = flash_attention(q, k, v, scale, return_lse=True)
             s = torch.einsum("bid,bjd->bij", q.float(), k.float()) * scale
             lse_err = (lse - torch.logsumexp(s, dim=-1)).abs().max().item()
             del s
-            same_o = bool(torch.equal(o, o_plain_fwd))
-            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, scale)
-            again = flash_attention_backward(q, k, v, o, lse, do, scale)
+            same_o = bool(torch.equal(o, o_plain_fwd)) and bool(torch.equal(o32.to(dtype), o))
+            dq, dk, dv = flash_attention_backward(q, k, v, o32, lse, do, scale)
+            again = flash_attention_backward(q, k, v, o32, lse, do, scale)
             torch.cuda.synchronize()
             same_grads = all(bool(torch.equal(a, b)) for a, b in zip((dq, dk, dv), again))
             refs = attention_backward_reference(q, k, v, do, scale)
             errs = [(a.float() - r.float()).abs().max().item() for a, r in zip((dq, dk, dv), refs)]
             tols = [tolerance(torch, r, dtype, f32_rel=1e-4) for r in refs]
             del refs, dq, dk, dv, again
-            ms2 = cuda_ms(torch, lambda: flash_attention_backward(q, k, v, o, lse, do, scale), 10)
+            ms2 = cuda_ms(torch, lambda: flash_attention_backward(q, k, v, o32, lse, do, scale),
+                          10)
             plain_ms2 = cuda_ms(
                 torch, lambda: attention_backward_reference(q, k, v, do, scale), 5)
             ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -478,8 +538,8 @@ def compare_attention(torch, attn_shapes, device) -> dict:
             lib_ms2 = cuda_ms(torch, lambda: torch.autograd.grad(
                 lib_out, (ql, kl, vl), do, retain_graph=True), 5)
             del lib_out, ql, kl, vl
-            work2 = (10.0 * TRAIN_BATCH * n * n * d,
-                     8.0 * TRAIN_BATCH * n * d * isz + 4.0 * TRAIN_BATCH * n)
+            work2 = (10.0 * TRAIN_BATCH * n * n * d,  # O read in float32
+                     (7.0 * isz + 4.0) * TRAIN_BATCH * n * d + 4.0 * TRAIN_BATCH * n)
             b2, b2_cc = bound(*work2, peak), bound(*work2)[0] if f32 else None
             emit({"phase": "kernel", "kernel": "flash_attention_backward", "layout": kind,
                   "n": n, "d": d, "batch": TRAIN_BATCH, "dtype": name,
@@ -493,13 +553,14 @@ def compare_attention(torch, attn_shapes, device) -> dict:
                               f"err {e} > {t}")
             check(same_grads, f"K2 gave other gradients on the same inputs ({kind} N={n} D={d} "
                               f"{name})")
-            check(same_o, f"K1 with the LSE output changed O ({kind} N={n} D={d} {name})")
+            check(same_o, f"K1 with the LSE output changed O, or its float32 O does not round "
+                          f"to it ({kind} N={n} D={d} {name})")
             check(lse_err <= 1e-4 * max(1.0, lse.abs().max().item()),
                   f"K1's LSE is off by {lse_err} ({kind} N={n} D={d} {name})")
             k2[f"{name}_err"] = max(k2[f"{name}_err"], *errs)
             if f32:
                 _add(k2, calls, ms2, plain_ms2, lib_ms2, b2, b2_cc)
-            del q, k, v, do, o, lse, o_plain_fwd
+            del q, k, v, do, o, lse, o32, o_plain_fwd
             torch.cuda.empty_cache()
     return {"flash_attention": k1, "flash_attention_backward": k2}
 
@@ -786,7 +847,6 @@ def profile_unet(torch, device) -> None:
     from srewd_tpu_torch.configs.config import load_commented_json
     from srewd_tpu_torch.diffusion.schedule import Schedule
     from srewd_tpu_torch.models.factory import build_model
-    from srewd_tpu_torch.ops.finite_diff import fd_stencils
 
     out_dir = os.path.join(BUILD, "profile")
     os.makedirs(out_dir, exist_ok=True)
@@ -796,17 +856,16 @@ def profile_unet(torch, device) -> None:
     lr = torch.randn(BATCH, 32, 64, 1, device=device, generator=g)
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
-        model = build_model(opt["model"], dtype=dtype)
+        with torch.device(device):
+            model = build_model(opt["model"], dtype=dtype)
         random_init_(model.unet, 0)
-        model.unet.to(device=device, dtype=dtype).eval()
-        cond = model.condition({"LR": lr})
-        x = torch.cat([cond, torch.randn(cond.shape, device=device, generator=g)], dim=-1)
+        cond, denoise_fn = model.denoiser({"LR": lr})  # the chain's UNet call
+        x = torch.randn(cond.shape, device=device, generator=g)
         lvl = torch.rand(BATCH, device=device, generator=g)
-        kw = {"dwt_pyramid": model.unet.make_dwt_pyramid(cond), "fd_maps": fd_stencils(cond)}
 
         @torch.no_grad()
         def call():
-            model.unet(x, lvl, **kw)
+            denoise_fn(x, lvl)
 
         for _ in range(2):
             call()
@@ -1006,6 +1065,38 @@ def _grad_report(grads_k, grads_p) -> dict:
             "worst_leaves": [[k, v] for k, v in top]}
 
 
+def _float64_check(torch, model, batch, sched, draws, leaves, sides: dict) -> dict:
+    """When a step breaks its bound: `leaves`' gradients recomputed in float64
+    on the plain path (a float64 copy of the model: the same weights, batch,
+    t, gamma and noise; the bicubic condition and the stencils stay float32,
+    the spliter's FFT complex64), and each side's relative RMSE to that
+    answer per leaf: the side far from it is the wrong one."""
+    import copy
+
+    from srewd_tpu_torch.ops import reference_ops
+
+    for part in (model.unet, model.encoder):
+        if part is not None:
+            part.zero_grad(set_to_none=True)
+    m64 = copy.deepcopy(model)
+    for part in (m64.unet, m64.encoder):
+        if part is not None:
+            part.double()
+            part.dtype = torch.float64
+    b64 = {k: v.double() for k, v in batch.items()}
+    d64 = {**draws, "u": draws["u"].double(), "noise": draws["noise"].double()}
+    with reference_ops():
+        loss64, g64 = _step_grads(torch, m64, b64, sched, d64)
+    del m64
+    out = {"loss": loss64, "leaves": {}}
+    for leaf in leaves:
+        ref = g64[leaf]
+        out["leaves"][leaf] = {side: rel_rmse(g[leaf], ref) for side, g in sides.items()}
+    del g64
+    torch.cuda.empty_cache()
+    return out
+
+
 def _step_draws(torch, model_cfg, device, seed) -> tuple:
     h, w = (int(model_cfg["diffusion"][k]) for k in ("image_height", "image_width"))
     g = torch.Generator(device=device).manual_seed(seed)
@@ -1040,9 +1131,13 @@ def compare_train_step(torch, device) -> None:
         loss_p, grads_p = _step_grads(torch, model, batch, sched, draws)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     rep = _grad_report(grads_k, grads_p)
+    over = loss_rel > 1e-5 or rep["worst_grad_rel_rmse"] > 1e-3
     emit({"phase": "step", "batch": 2, "dtype": "f32", "loss_kernels": loss_k,
           "loss_plain": loss_p, "loss_rel_diff": loss_rel, **rep,
-          "bounds": {"loss": 1e-5, "grad": 1e-3}})
+          "bounds": {"loss": 1e-5, "grad": 1e-3},
+          "float64": _float64_check(torch, model, batch, sched, draws,
+                                    [k for k, _ in rep["worst_leaves"]],
+                                    {"kernels": grads_k, "plain": grads_p}) if over else None})
     check(loss_rel <= 1e-5, f"whole-step loss differs by {loss_rel} (relative)")
     check(rep["worst_grad_rel_rmse"] <= 1e-3,
           f"gradient of {rep['worst_leaf']} differs by {rep['worst_grad_rel_rmse']} "
@@ -1227,7 +1322,7 @@ def _tap(torch, cls, method: str, on_first=None):
 def _check_grads(torch, model) -> dict:
     """After a training step: every UNet parameter has a finite gradient,
     not all zero but for DEAD_RELU_OK's; every encoder parameter too when
-    the encoder is unlocked, and none when it is locked."""
+    the encoder is unlocked, and none when it is locked (or absent)."""
     def bad(module):
         return [n for n, p in module.named_parameters() if p.grad is None
                 or not bool(torch.isfinite(p.grad).all())
@@ -1236,11 +1331,14 @@ def _check_grads(torch, model) -> dict:
     bad_unet = bad(model.unet)
     zero_ok = [n for n, p in model.unet.named_parameters()
                if n.startswith(DEAD_RELU_OK) and not bool(p.grad.any())]
-    n_enc = sum(1 for _ in model.encoder.parameters())
-    if model.lock_encoder:
-        bad_enc = [n for n, p in model.encoder.named_parameters() if p.grad is not None]
+    enc = model.encoder
+    n_enc = 0 if enc is None else sum(1 for _ in enc.parameters())
+    if enc is None:
+        bad_enc = []
+    elif model.lock_encoder:
+        bad_enc = [n for n, p in enc.named_parameters() if p.grad is not None]
     else:
-        bad_enc = bad(model.encoder)
+        bad_enc = bad(enc)
     check(not bad_unet, f"{len(bad_unet)} UNet parameters got no finite nonzero gradient: "
                         f"{bad_unet[:8]}")
     check(not bad_enc, f"{len(bad_enc)} of {n_enc} encoder parameters break the "
@@ -1370,11 +1468,13 @@ def run_archs(torch, workdir, device, ckpts, per_arch) -> dict:
                                ["--sampler", "dpm", "--ddim-steps", str(DPM_STEPS), *extra],
                                per_arch, fields)
             total.update(line["launches"])
+    speeds = {}
     for arch in ("srdiff", "physrdiff", "resdiff"):
         res = train_arch(torch, workdir, arch, ckpts[ENCODER_OF[arch]], device)
         for key in ("launches", "launches_resume", "launches_sample"):
             total.update(res[key])
-    return dict(total)
+        speeds[arch] = res["steps_per_sec"]
+    return dict(total), speeds
 
 
 def _side(torch, fn, plain: bool, uses: tuple) -> tuple:
@@ -1447,12 +1547,523 @@ def compare_archs(torch, device) -> None:
     torch.cuda.empty_cache()
 
 
+# bf16 training (phase 11): tests/test_torch_port_bf16.py's tolerances. The
+# two sides of a bf16 step carry their own rounding noise, uncorrelated, so a
+# leaf is held to BF16_GRAD_FACTOR times the plain side's own bf16 error (its
+# distance to the float32 gradient of the same weights), not to a fixed
+# relative RMSE; a leaf that is a cancelling sum (a final bias) can sit at a
+# relative RMSE of several between any two bf16 runs. A leaf's gradient is the
+# float32 image of a bf16 tensor, so the plain side's distance to float32
+# counts as no less than one bf16 ulp of its own value: under the L1 loss the
+# final conv's bias gradient is a sign count, (n+ - n-) / N, which rounds to a
+# multiple of 64 / N, and the plain side can round onto the float32 count
+# exactly, which would leave that leaf a bound of 1e-6 of the largest leaf, a
+# 670th of one ulp.
+BF16_LOSS_REL = 2e-3
+BF16_GRAD_FACTOR = 3.0
+BF16_GRAD_REL_ALL = 0.1
+FINAL_BIAS = "final_conv.block.3.bias"
+
+
+def bf16_ulp(torch, g):
+    """One bf16 ulp of each element of g (0 where g is 0): 2^(e - 8) for
+    |g| in [2^(e-1), 2^e), bf16 carrying 8 significant bits."""
+    a = g.double().abs()
+    _, e = torch.frexp(a)
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8), torch.zeros_like(a))
+
+
+def _bf16_report(torch, grads_k, grads_p, grads_f) -> dict:
+    """Kernels against plain in bf16: per leaf |g_k - g_p| over its bound
+    BF16_GRAD_FACTOR max(|g_p - g_f|, |ulp(g_p)|) + 1e-6 largest (g_f: the
+    plain float32 gradient; ulp: bf16's, element by element), the worst five,
+    the worst raw relative RMSE, the relative RMSE over all leaves, and the
+    leaves whose bound the ulp sets, each with |g_p - g_f| / |ulp(g_p)|."""
+    largest = max(g.double().norm().item() for g in grads_p.values())
+    over, rel, floored = {}, {}, {}
+    for name, gp in grads_p.items():
+        gk, gp, gf = grads_k[name].double(), gp.double(), grads_f[name].double()
+        dist, ulp = (gp - gf).norm().item(), bf16_ulp(torch, gp).norm().item()
+        if dist < ulp:
+            floored[name] = dist / ulp
+        bound = BF16_GRAD_FACTOR * max(dist, ulp) + 1e-6 * largest
+        over[name] = (gk - gp).norm().item() / bound
+        rel[name] = rel_rmse(gk, gp) if gp.norm().item() > 0 else 0.0
+    top = sorted(over.items(), key=lambda kv: -kv[1])[:5]
+    cat = [torch.cat([g[k].double().flatten() for k in sorted(grads_p)])
+           for g in (grads_k, grads_p)]
+    return {"grad_leaves": len(grads_p), "ulp_floored_leaves": len(floored),
+            "ulp_floored": sorted(floored.items(), key=lambda kv: kv[1]),
+            "worst_err_over_bound": top[0][1],
+            "worst_leaf": top[0][0], "worst_leaves": [[k, v, rel[k]] for k, v in top],
+            "worst_grad_rel_rmse": max(rel.values()),
+            "worst_grad_rel_rmse_leaf": max(rel, key=rel.get),
+            "grad_rel_rmse_all_leaves": rel_rmse(*cat)}
+
+
+def compare_bf16_step(torch, device, seed: int = 3) -> dict:
+    """Phase 11's comparison: one bf16 loss.backward() of phase 7's model
+    (full-width phydiff, batch 2, dropout 0, phase 7's draws at seed 3) with
+    the kernels against inside reference_ops(), and the plain float32 step of
+    the same master weights as the yardstick of bf16's own error. The line
+    also gives the final conv's bias gradient of each side times the number
+    of output elements: under the L1 loss, a count of signs."""
+    import copy
+
+    from srewd_tpu_torch.cli import random_init_
+    from srewd_tpu_torch.configs.config import load_commented_json
+    from srewd_tpu_torch.diffusion.schedule import Schedule
+    from srewd_tpu_torch.models.factory import build_model
+
+    opt = load_commented_json(CONFIG_TRAIN)
+    model_cfg = copy.deepcopy(opt["model"])
+    model_cfg["unet"]["dropout"] = 0.0
+    with torch.device(device):
+        model = build_model(model_cfg, dtype=torch.bfloat16)
+    random_init_(model.unet, 0)
+    sched = Schedule.from_config(opt["model"]["beta_schedule"]["train"], device=device)
+    batch, draws = _step_draws(torch, model_cfg, device, seed)
+    training = ("flash_attention", "flash_attention_backward", "gn_swish", "gn_swish_backward")
+    (loss_k, grads_k), launches = _side(
+        torch, lambda: _step_grads(torch, model, batch, sched, draws), False, training)
+    (loss_p, grads_p), _ = _side(
+        torch, lambda: _step_grads(torch, model, batch, sched, draws), True, training)
+    model.unet.dtype = None  # float32 compute over the same master weights
+    (loss_f, grads_f), _ = _side(
+        torch, lambda: _step_grads(torch, model, batch, sched, draws), True, training)
+    model.unet.dtype = torch.bfloat16
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rep = _bf16_report(torch, grads_k, grads_p, grads_f)
+    over = (loss_rel > BF16_LOSS_REL or rep["worst_err_over_bound"] > 1.0
+            or rep["grad_rel_rmse_all_leaves"] > BF16_GRAD_REL_ALL)
+    n_out = draws["noise"].numel()
+    line = {"phase": "bf16_step", "arch": "phydiff", "batch": 2, "dtype": "bf16",
+            "draw_seed": seed, "final_bias_times_n": [
+                g[FINAL_BIAS].item() * n_out for g in (grads_k, grads_p, grads_f)],
+            "loss_kernels": loss_k, "loss_plain": loss_p, "loss_plain_f32": loss_f,
+            "loss_rel_diff": loss_rel, **rep, "launches": launches,
+            "bounds": {"loss": BF16_LOSS_REL, "grad_factor": BF16_GRAD_FACTOR,
+                       "grad_all_leaves": BF16_GRAD_REL_ALL},
+            "float64": _float64_check(torch, model, batch, sched, draws,
+                                      [k for k, *_ in rep["worst_leaves"]],
+                                      {"kernels": grads_k, "plain": grads_p})
+            if over else None}
+    emit(line)
+    check(loss_rel <= BF16_LOSS_REL, f"bf16 step loss differs by {loss_rel} (relative)")
+    check(rep["worst_err_over_bound"] <= 1.0,
+          f"bf16 gradient of {rep['worst_leaf']} is {rep['worst_err_over_bound']} times its "
+          f"bound ({BF16_GRAD_FACTOR} x the plain side's distance to float32, at least "
+          "one bf16 ulp)")
+    check(rep["grad_rel_rmse_all_leaves"] <= BF16_GRAD_REL_ALL,
+          f"bf16 gradients differ by {rep['grad_rel_rmse_all_leaves']} over all leaves")
+    del model
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_kernel_table(torch, attn_shapes, gn_shapes, device) -> None:
+    """--train-kernels: the bf16 training step's kernels per main-path unit
+    (one phydiff step: phase 3's shapes with phydiff's calls per UNet call)
+    at batch 4 (the trainer's) and 16 (bench_train's): calls x the median
+    CUDA-event ms of one call of K1 with its row log-sum-exp, K2, K3 with
+    its statistics and K3's backward, of their plain versions and of the
+    library calls (SDPA's forward and backward; F.group_norm forward and
+    backward on the channels_last NCHW view at the swish-less shapes, as in
+    phase 3, and F.silu(F.group_norm) at the others as torch_two_calls_ms),
+    beside the bound at 989 TFLOP/s and 3.35 TB/s (phase 3's op and byte
+    counts). One line per kernel and batch; timing only, phase 3 holds the
+    results."""
+    import torch.nn.functional as F
+
+    from srewd_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, attention_reference, flash_attention,
+        flash_attention_backward)
+    from srewd_tpu_torch.ops.fused_groupnorm import (
+        gn_swish, gn_swish_backward, gn_swish_backward_reference, gn_swish_reference)
+
+    dt = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(2)
+    for b in (TRAIN_BATCH, 16):
+        rows = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "torch_two_calls_ms": 0.0, "bound_ms": 0.0, "bound_by": None, "calls": 0}
+                for k in ("flash_attention", "flash_attention_backward", "gn_swish",
+                          "gn_swish_backward")}
+
+        def add(name, calls, ms, plain_ms, lib_ms, bd, dev_ms, two_calls=False):
+            r = rows[name]
+            r["calls"] += calls
+            r["ms"] += calls * ms
+            r["device_ms"] += calls * dev_ms
+            r["plain_ms"] += calls * plain_ms
+            r["torch_two_calls_ms" if two_calls else "library_ms"] += calls * lib_ms
+            r["bound_ms"] += calls * bd[0]
+            r["bound_by"] = bd[1] if r["bound_by"] in (None, bd[1]) else "operations and bytes"
+
+        for (kind, n, d), calls in sorted(attn_shapes.items()):
+            scale = 1.0 / math.sqrt(d)
+            q, k, v = attention_inputs(torch, kind, b, n, d, dt, device, g)
+            do = torch.randn(b, n, d, device=device, generator=g).to(dt)
+            o, lse, o32 = flash_attention(q, k, v, scale, return_lse=True)
+            add("flash_attention", calls,
+                cuda_ms(torch, lambda: flash_attention(q, k, v, scale, return_lse=True), 10),
+                cuda_ms(torch, lambda: attention_reference(q, k, v, scale), 5),
+                cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10),
+                bound(4.0 * b * n * n * d, 4.0 * b * n * d * 2 + 4.0 * b * n * d + 4.0 * b * n,
+                      PEAK_BF16),
+                graph_ms(torch, lambda: flash_attention(q, k, v, scale, return_lse=True)))
+            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            add("flash_attention_backward", calls,
+                cuda_ms(torch, lambda: flash_attention_backward(q, k, v, o32, lse, do, scale), 10),
+                cuda_ms(torch, lambda: attention_backward_reference(q, k, v, do, scale), 3),
+                cuda_ms(torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                           retain_graph=True), 5),
+                bound(10.0 * b * n * n * d, 7.0 * b * n * d * 2 + 4.0 * b * n * d + 4.0 * b * n,
+                      PEAK_BF16),
+                graph_ms(torch, lambda: flash_attention_backward(q, k, v, o32, lse, do, scale)))
+            del q, k, v, do, o, lse, o32, ql, kl, vl, lib_out
+            torch.cuda.empty_cache()
+        for (shape, groups, swish), calls in sorted(gn_shapes.items()):
+            shape = (b, *shape[1:])
+            c = shape[-1]
+            w = torch.randn(c, device=device, generator=g).to(dt)
+            bias = torch.randn(c, device=device, generator=g).to(dt)
+            x = (torch.randn(shape, device=device, generator=g) * 3 + 1).to(dt)
+            dy = torch.randn(shape, device=device, generator=g).to(dt)
+            _, mean, rstd = gn_swish(x, w, bias, groups, 1e-5, swish, return_stats=True)
+
+            def torch_gn():
+                y = F.group_norm(x.permute(0, 3, 1, 2), groups, w, bias, 1e-5)
+                return F.silu(y) if swish else y
+
+            add("gn_swish", calls,
+                cuda_ms(torch, lambda: gn_swish(x, w, bias, groups, 1e-5, swish,
+                                                return_stats=True), 20),
+                cuda_ms(torch, lambda: gn_swish_reference(x, w, bias, groups, 1e-5, swish), 10),
+                cuda_ms(torch, torch_gn, 20),
+                bound(10.0 * x.numel(), 2.0 * x.numel() * 2 + 2 * c * 2, PEAK_BF16),
+                graph_ms(torch, lambda: gn_swish(x, w, bias, groups, 1e-5, swish,
+                                                 return_stats=True)), swish)
+            xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, bias))
+            yl = F.group_norm(xl.permute(0, 3, 1, 2), groups, wl, bl, 1e-5)
+            yl = F.silu(yl) if swish else yl
+            add("gn_swish_backward", calls,
+                cuda_ms(torch, lambda: gn_swish_backward(x, dy, w, bias, mean, rstd, groups,
+                                                         swish), 20),
+                cuda_ms(torch, lambda: gn_swish_backward_reference(x, dy, w, bias, groups, 1e-5,
+                                                                   swish), 5),
+                cuda_ms(torch, lambda: torch.autograd.grad(yl, (xl, wl, bl),
+                                                           dy.permute(0, 3, 1, 2),
+                                                           retain_graph=True), 10),
+                bound(20.0 * x.numel(), 3.0 * x.numel() * 2 + 4 * c * 2, PEAK_BF16),
+                graph_ms(torch, lambda: gn_swish_backward(x, dy, w, bias, mean, rstd, groups,
+                                                          swish)), swish)
+            del x, dy, w, bias, mean, rstd, xl, wl, bl, yl
+            torch.cuda.empty_cache()
+        for name, r in rows.items():
+            emit({"phase": "train_kernels", "kernel": name, "dtype": "bf16", "batch": b,
+                  "unit": "one phydiff training step", **r,
+                  "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"],
+                  "device_pct_of_bound": 100.0 * r["bound_ms"] / r["device_ms"]})
+
+
+def profile_train_steps(torch, workdir, device) -> None:
+    """--train-kernels: one phydiff training step at batch 4 (phase 6's
+    config, trainer as build_trainer makes it), bf16 and float32: host ms of
+    5 steps to a synchronise after 3 warm-up steps, then torch.profiler over
+    3 steps: device busy ms, idle share, kernel launches and the top kernels
+    and host operations per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from srewd_tpu_torch.cli import Config, build_data_handler, build_trainer, cuda_numerics
+
+    cuda_numerics(device, training=True)
+    opt = Config(train_config(workdir), phase="train", experiment=False).get_opt()
+    opt["path"]["checkpoint"] = None
+    batches = list(build_data_handler(opt).train_batches(epoch=1))
+    for dtype in (torch.bfloat16, None):
+        trainer = build_trainer(opt, device, dtype=dtype)
+        for i in range(3):
+            trainer.train_on_batch(batches[i])
+        speed = _steps_per_sec(torch, trainer.train_on_batch_async, [(b,) for b in batches])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(3):
+                trainer.train_on_batch_async(batches[i])
+            torch.cuda.synchronize()
+        rows = _device_kernels(torch, prof, 3)
+        host = sorted(((e.key, e.self_cpu_time_total / 3e3, e.count / 3)
+                       for e in prof.key_averages()), key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        emit({"phase": "train_step_profile", "arch": "phydiff", "batch": TRAIN_BATCH,
+              "dtype": "bf16" if dtype else "f32", **speed, "device_busy_ms": busy,
+              "idle_share": 1.0 - busy / speed["step_host_ms"],
+              "kernel_launches": sum(r[2] for r in rows),
+              "top_kernels": [[k[:90], ms, n] for k, ms, n in rows[:15]],
+              "top_host_ops": [[k[:60], ms, n] for k, ms, n in host[:12]]})
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def _float_state(trainer) -> dict:
+    """The dtypes of every trainable parameter, Adam moment and EMA entry."""
+    moments = [v for st in trainer.optimizer.state.values() for v in st.values()
+               if v.is_floating_point() and v.ndim > 0]
+    ema = list((trainer.ema or {}).values()) + list((trainer.ema_encoder or {}).values())
+    return {"parameters": sorted({str(p.dtype) for p in trainer.trainable}),
+            "moments": sorted({str(v.dtype) for v in moments}), "n_moments": len(moments),
+            "ema": sorted({str(v.dtype) for v in ema}), "n_ema": len(ema)}
+
+
+def bf16_train_config(workdir, arch, ckpts) -> str:
+    """Phase 11's config: phase 6's (phydiff) or phase 9's srdiff+rrdb_unlocked
+    at batch 4 on phase 8's RRDB, with EMA from step 0."""
+    from srewd_tpu_torch.configs.config import load_commented_json
+
+    if arch == "phydiff":
+        cfg = load_commented_json(train_config(workdir))
+    else:
+        cfg = load_commented_json(ARCH_TRAIN_CONFIGS[arch])
+        cfg["data"].update(arch_data_settings(workdir), batch_size=TRAIN_BATCH,
+                           val_batch_size=BATCH)
+        cfg["model"]["pretrained_model"]["model_path"] = ckpts["rrdb"]
+        cfg["path"]["experiments_folder_path"] = os.path.join(workdir, f"bf16_{arch}")
+    cfg["train"]["ema_scheduler"].update(enabled=True, step_start_ema=0)
+    return _write_config(workdir, f"bf16_train_{arch}", cfg)
+
+
+def train_bf16(torch, workdir, arch, device, per_arch, ckpts, f32_speed) -> dict:
+    """Phase 11 for one arch: build_trainer(dtype=bfloat16) as train.main
+    builds it, one step (gradients, launches), 5 timed steps, the float32
+    state, a DPM-5 bf16 chain through the trained model."""
+    from srewd_tpu_torch.cli import Config, build_data_handler, build_trainer
+
+    opt = Config(bf16_train_config(workdir, arch, ckpts), phase="train",
+                 experiment=False).get_opt()
+    opt["path"]["checkpoint"] = None
+    dh = build_data_handler(opt)
+    batches = list(dh.train_batches(epoch=1))[:6]
+    trainer = build_trainer(opt, device, dtype=torch.bfloat16)
+    per_step = {"flash_attention": per_arch[arch]["attention_calls"],
+                "flash_attention_backward": per_arch[arch]["attention_calls"],
+                "gn_swish": per_arch[arch]["gn_calls"],
+                "gn_swish_backward": per_arch[arch]["gn_calls"]}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.train_on_batch(batches[0])]  # cuDNN times its bf16 algorithms here
+    first_step_sec = time.perf_counter() - t0
+    launches, plain = read_counts()
+    grads = _check_grads(torch, trainer.model)
+    check(launches == per_step and sum(plain.values()) == 0,
+          f"{arch} bf16 step: launches {launches} (expected {per_step}), plain calls {plain}")
+    reset_counts()
+    speed = _steps_per_sec(torch, trainer.train_on_batch_async, [(b,) for b in batches[1:]])
+    launches5, plain5 = read_counts()
+    check(launches5 == {k: 5 * v for k, v in per_step.items()} and sum(plain5.values()) == 0,
+          f"{arch} bf16 steps: launches {launches5}, plain calls {plain5}")
+    state = _float_state(trainer)
+    check(all(v == ["torch.float32"] for k, v in state.items() if not k.startswith("n_"))
+          and state["n_moments"] == 2 * len(trainer.trainable) and state["n_ema"] > 0,
+          f"{arch} bf16 training state is not all float32: {state}")
+    check(all(math.isfinite(v) for v in losses), f"{arch} bf16 loss {losses}")
+
+    model = trainer.model
+    masters = {f"{pre}{n}": p.detach().clone() for pre, m in (("", model.unet),
+                                                              ("encoder.", model.encoder))
+               if m is not None for n, p in m.named_parameters()}
+    lr = torch.as_tensor(batches[0]["LR"]).to(device)
+    reset_counts()
+    sr = model.generate_sr({"LR": lr}, trainer.schedule_val, sampler="dpm", ddim_steps=5,
+                           generator=torch.Generator(device=device).manual_seed(7))
+    torch.cuda.synchronize()
+    launches_sample, plain_sample = read_counts()
+    now = {f"{pre}{n}": p for pre, m in (("", model.unet), ("encoder.", model.encoder))
+           if m is not None for n, p in m.named_parameters()}
+    unchanged = all(p.dtype == torch.float32 and torch.equal(p, masters[n])
+                    for n, p in now.items())
+    line = {"phase": "bf16_train", "arch": arch, "batch": TRAIN_BATCH, "dtype": "bf16",
+            "first_step_sec": first_step_sec, **speed,
+            "steps_per_sec_f32_same_settings": f32_speed,
+            "bf16_over_f32": speed["steps_per_sec"] / f32_speed, "losses": losses,
+            "launches_per_step": launches, "state_dtypes": state, **grads,
+            "dpm5_finite": bool(torch.isfinite(sr).all()), "launches_sample": launches_sample,
+            "masters_float32_unchanged": unchanged}
+    emit(line)
+    check(line["dpm5_finite"], f"{arch}: the bf16 DPM-5 chain gave non-finite values")
+    check(launches_sample["flash_attention"] == 5 * per_step["flash_attention"]
+          and launches_sample["gn_swish"] == 5 * per_step["gn_swish"]
+          and sum(plain_sample.values()) == 0,
+          f"{arch}: the bf16 chain's launches {launches_sample}, plain calls {plain_sample}")
+    check(unchanged, f"{arch}: the bf16 chain changed the master weights or their dtype")
+    del trainer, model, masters
+    torch.cuda.empty_cache()
+    launches_all = {k: launches[k] + launches5[k] + launches_sample[k] for k in launches}
+    return {"launches": launches_all, "steps_per_sec": speed["steps_per_sec"]}
+
+
+def run_bf16_training(torch, workdir, device, per_arch, ckpts, f32_speed) -> dict:
+    """Phase 11: bf16 training of phydiff (phase 6's config) and srdiff with
+    its RRDB unlocked (phase 9's), then phase 7's step in bf16, kernels
+    against plain."""
+    from collections import Counter
+
+    from srewd_tpu_torch.cli import cuda_numerics
+
+    cuda_numerics(device, training=True)
+    total = Counter()
+    for arch in ("phydiff", "srdiff"):
+        total.update(train_bf16(torch, workdir, arch, device, per_arch, ckpts,
+                                f32_speed[arch])["launches"])
+    compare_bf16_step(torch, device)
+    return dict(total)
+
+
+def trace_summary(path: str) -> dict:
+    """From a run_training Chrome trace: the window from the first traced
+    step's start to the last kernel's end, the card's busy time in it (the
+    union of kernel intervals) and idle share, and per kernel family the
+    device ms and launches."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    steps = [e for e in events if e.get("name") == "train_step"
+             and e.get("cat") == "user_annotation"]
+    check(bool(kernels) and bool(steps), f"the trace {path} holds no kernels or no train_step")
+    t0 = min(e["ts"] for e in steps)
+    t1 = max(e["ts"] + e["dur"] for e in kernels)
+    busy, end = 0.0, t0
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], end), min(e["ts"] + e["dur"], t1)
+        if hi > lo:
+            busy += hi - lo
+        end = max(end, e["ts"] + e["dur"])
+    families = {"flash_attention": ("flash_fwd_kernel",),
+                "flash_attention_backward": ("flash_bwd_",),
+                "gn_swish": ("gn_fwd_kernel",), "gn_swish_backward": ("gn_bwd_kernel",
+                                                                      "gn_wb_kernel")}
+    per = {}
+    for fam, keys in families.items():
+        mine = [e for e in kernels if any(k in e["name"] for k in keys)]
+        per[fam] = {"device_ms": sum(e["dur"] for e in mine) / 1e3, "launches": len(mine)}
+    return {"steps": len(steps), "window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (t1 - t0), "kernels": per}
+
+
+def run_bench_twins(torch, workdir, device) -> dict:
+    """Phase 12: `srewd_tpu_torch.bench` (DDIM-50, one timed chain: sr3 bf16,
+    phydiff float32) and `bench_train` (sr3, batch 16, bf16, 10 steps, 0 <
+    MFU < 1) through their run functions, one more bench_train step with
+    every kernel launch repeated and held against its plain version; then
+    run_training of phydiff in bf16: 6 steps with a profiler window on steps
+    4-6 under build/, and 4 steps with train.device_data_cache against the
+    same 4 through the prefetcher (losses equal bit for bit)."""
+    import copy
+    import io
+    from collections import Counter
+
+    from srewd_tpu_torch import bench, bench_train
+    from srewd_tpu_torch.cli import Config, build_data_handler, build_trainer, cuda_numerics
+    from srewd_tpu_torch.configs.config import load_commented_json
+    from srewd_tpu_torch.training.trainer import DiffusionTrainer, run_training
+
+    total = Counter()
+    for arch, dtype in (("sr3", "bf16"), ("phydiff", "f32")):
+        _sample_defaults(torch)  # as the sample CLI meets cuDNN
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            res = bench.run(bench.bench_model_cfg(arch), device, batch=BATCH, dtype=dtype,
+                            repeats=1, sampler="ddim", ddim_steps=50)
+        launches, plain = read_counts()
+        total.update(launches)
+        emit({"phase": "bench", "arch": arch, "dtype": dtype, "result": res,
+              "launches": launches, "plain_calls": plain})
+        check(out.getvalue().strip() == json.dumps(res), f"bench printed {out.getvalue()!r}")
+        check(res["value"] > 0 and math.isfinite(res["vs_baseline"]), f"bench {arch}: {res}")
+        check(launches["flash_attention"] > 0 and launches["gn_swish"] > 0
+              and launches["flash_attention_backward"] == launches["gn_swish_backward"] == 0
+              and sum(plain.values()) == 0, f"bench {arch}: {launches} {plain}")
+
+    cuda_numerics(device, training=True)
+    out = io.StringIO()
+    reset_counts()
+    with _tap(torch, DiffusionTrainer, "train_on_batch_async") as tap, \
+            contextlib.redirect_stdout(out):
+        res = bench_train.run(bench.bench_model_cfg("sr3"), device, batch=16, dtype="bf16",
+                              steps=10)
+    launches, plain = read_counts()
+    total.update(launches)
+    log = {}
+    unwrap = _watch_kernels(torch, log)
+    try:  # launches made to hold the kernels against their plain versions: not counted
+        tap["obj"].train_on_batch_async(*tap["calls"][0])
+        torch.cuda.synchronize()
+    finally:
+        unwrap()
+    del tap
+    torch.cuda.empty_cache()
+    emit({"phase": "bench_train", "result": res, "launches": launches, "plain_calls": plain,
+          "watched_step": log})
+    check(out.getvalue().strip() == json.dumps(res), f"bench_train printed {out.getvalue()!r}")
+    check(0.0 < res["mfu"] < 1.0, f"bench_train MFU {res['mfu']} outside (0, 1)")
+    # 12 steps on the card; the plain versions ran once each per call of a
+    # step, on the meta device, where bench_train counts the step's FLOPs
+    steps = 12
+    one_plain_step = {"attention_reference": launches["flash_attention"] // steps,
+                      "attention_backward_reference": launches["flash_attention_backward"] // steps,
+                      "gn_swish_reference": launches["gn_swish"] // steps,
+                      "gn_swish_backward_reference": launches["gn_swish_backward"] // steps}
+    check(all(launches[k] > 0 and launches[k] % steps == 0 for k in launches)
+          and plain == one_plain_step, f"bench_train: {launches} {plain}")
+    check(set(log) == set(launches) and all(
+        r["differ_on_repeat"] == r["nonfinite"] == r["over_tol"] == 0 for r in log.values()),
+          f"bench_train's batch-16 launches against their plain versions: {log}")
+
+    cfg = load_commented_json(train_config(workdir))
+    trace_dir = os.path.join(BUILD, "profile", "run_training_bf16")
+    cfg["train"].update(n_iter=6, print_freq=6, profile_trace_dir=trace_dir, profile_start=3,
+                        profile_steps=3)
+    runs = {}
+    for name, extra in (("traced", {}), ("device_cache", {"n_iter": 4, "device_data_cache": True,
+                                                           "profile_trace_dir": None}),
+                        ("prefetcher", {"n_iter": 4, "profile_trace_dir": None})):
+        c = copy.deepcopy(cfg)
+        c["train"].update(extra)
+        opt = Config(_write_config(workdir, f"run_training_{name}", c), phase="train",
+                     experiment=False).get_opt()
+        opt["path"]["checkpoint"] = None
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[name] = run_training(opt, build_data_handler(opt),
+                                  build_trainer(opt, device, dtype=torch.bfloat16))
+        runs[name]["sec"] = time.perf_counter() - t0
+        launches, plain = read_counts()
+        total.update(launches)
+        check(all(launches[k] > 0 for k in launches) and sum(plain.values()) == 0,
+              f"run_training {name}: {launches} {plain}")
+    summary = trace_summary(runs["traced"]["trace"])
+    cached = [v for _, v in runs["device_cache"]["losses"]]
+    streamed = [v for _, v in runs["prefetcher"]["losses"]]
+    emit({"phase": "run_training_bf16", "trace": os.path.relpath(runs["traced"]["trace"], REPO),
+          "trace_bytes": os.path.getsize(runs["traced"]["trace"]), **summary,
+          "losses_traced": [v for _, v in runs["traced"]["losses"]],
+          "losses_device_cache": cached, "losses_prefetcher": streamed,
+          "sec": {k: r["sec"] for k, r in runs.items()},
+          "steps_per_sec": {k: r["steps_per_sec"] for k, r in runs.items()}})
+    check(summary["steps"] == 3 and all(summary["kernels"][k]["launches"] > 0
+                                        for k in summary["kernels"]),
+          f"the trace does not show 3 steps of K1, K2, K3 and its backward: {summary}")
+    check(len(cached) == 4 and cached == streamed,
+          f"device_data_cache losses {cached} differ from the prefetcher's {streamed}")
+    return dict(total)
+
+
 def _watch_kernels(torch, log: dict):
     """Wrap the four kernel wrappers (module globals, which the autograd
     Functions look up at each call) so that every launch is made twice on
     the same inputs, whose results must be the same bit for bit, and is held
-    against its plain version on those inputs (phase 3's float32
-    tolerances). `log` collects per kernel the calls, the repeats that
+    against its plain version on those inputs (phase 3's tolerances for the
+    result's dtype). `log` collects per kernel the calls, the repeats that
     differ, the non-finite results, the worst error over its tolerance and
     the first few bad calls. Returns the function that unwraps them."""
     from srewd_tpu_torch.ops import flash_attention as fa
@@ -1466,7 +2077,7 @@ def _watch_kernels(torch, log: dict):
         same = all(torch.equal(a, b) for a, b in zip(outs, again))
         finite = all(bool(torch.isfinite(a).all()) for a in outs)
         ratio = max((a.double() - r.double()).abs().max().item()
-                    / (rel * max(1.0, r.double().abs().max().item())) for a, r in pairs)
+                    / tolerance(torch, r, a.dtype, f32_rel=rel) for a, r in pairs)
         rec["differ_on_repeat"] += not same
         rec["nonfinite"] += not finite
         rec["over_tol"] += ratio > 1.0
@@ -1620,7 +2231,8 @@ def stress_step(torch, device, repeats: int) -> None:
 
 def kernel_entry(name, route, source, replaces, tot, launches_by_phase) -> dict:
     """The kernels line's entry: `launches` sums the main-path runs (phases
-    4, 6, 8 and 9, each counted from 0), `launches_by_phase` splits them."""
+    4, 6, 8, 9, 11 and 12, each counted from 0), `launches_by_phase` splits
+    them."""
     entry = {"name": name, "route": route, "source": source, "replaces": replaces,
              "launches": sum(launches_by_phase.values()),
              "launches_by_phase": launches_by_phase, "max_abs_err": tot["f32_err"],
@@ -1681,9 +2293,11 @@ def report_cuda_kernels() -> None:
 
 def main(argv: list) -> int:
     stress = argv[1] if len(argv) == 2 and argv[0] == "--stress" else None
-    if argv not in ([], ["--profile"]) and not (stress or "").isdigit():
-        print(f"chip_smoke: unknown arguments {argv}; the options are --profile and "
-              "--stress N", file=sys.stderr)
+    bf16_steps = argv[1] if len(argv) == 2 and argv[0] == "--bf16-step" else None
+    if argv not in ([], ["--profile"], ["--train-kernels"]) and not (
+            (stress or bf16_steps or "").isdigit()):
+        print(f"chip_smoke: unknown arguments {argv}; the options are --profile, "
+              "--train-kernels, --stress N and --bf16-step N", file=sys.stderr)
         return 2
     import torch
 
@@ -1695,6 +2309,9 @@ def main(argv: list) -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    mode = "".join("_" + a.lstrip("-") for a in argv)  # one file per mode
+    KEEP["file"] = open(os.path.join(REPO, "chiprun_out", f"chip_smoke{mode}.jsonl"), "w")
     # float32 numerics: full-precision convolutions and matmuls (no TF32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1721,7 +2338,15 @@ def main(argv: list) -> int:
     os.makedirs(os.path.join(BUILD, "profile"), exist_ok=True)
     if argv == ["--profile"]:
         profile_unet(torch, device)
-        print(smi, flush=True)
+        say(smi)
+        return 0
+    if bf16_steps:
+        from srewd_tpu_torch.cli import cuda_numerics
+
+        cuda_numerics(device, training=True)
+        for seed in range(3, 3 + int(bf16_steps)):
+            compare_bf16_step(torch, device, seed)
+        say(smi)
         return 0
 
     attn_shapes, gn_shapes, per_arch = arch_shapes(torch, device)
@@ -1730,6 +2355,12 @@ def main(argv: list) -> int:
           "gn_swish": [[list(s), g, sw, c] for (s, g, sw), c in sorted(gn_shapes.items())],
           "added_by_resdiff_srdiff_physrdiff": sum(
               len(per_arch[a]["shapes_added"]) for a in ("resdiff", "srdiff", "physrdiff"))})
+    if argv == ["--train-kernels"]:
+        train_kernel_table(torch, attn_shapes, gn_shapes, device)
+        with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
+            profile_train_steps(torch, workdir, device)
+        say(smi)
+        return 0
     kernels = {**compare_attention(torch, attn_shapes, device),
                **compare_gn(torch, gn_shapes, device)}
     torch.cuda.empty_cache()
@@ -1738,18 +2369,24 @@ def main(argv: list) -> int:
         launches_sample, _ = run_slice(torch, workdir)
         compare_slice(torch, device)
         torch.cuda.empty_cache()
-        launches_train = run_train_slice(torch, workdir, device)["launches"]
+        phase6 = run_train_slice(torch, workdir, device)
         if stress:
             stress_step(torch, device, int(stress))
-            print(smi, flush=True)
+            say(smi)
             return 0
         compare_train_step(torch, device)
         pre = run_pretrain(torch, workdir, device)
-        launches_archs = run_archs(torch, workdir, device, pre["checkpoints"], per_arch)
-    compare_archs(torch, device)
+        launches_archs, f32_speed = run_archs(torch, workdir, device, pre["checkpoints"],
+                                              per_arch)
+        compare_archs(torch, device)
+        f32_speed["phydiff"] = phase6["step"]["steps_per_sec"]
+        launches_bf16 = run_bf16_training(torch, workdir, device, per_arch, pre["checkpoints"],
+                                          f32_speed)
+        launches_bench = run_bench_twins(torch, workdir, device)
 
-    by_phase = {"sample_phydiff": launches_sample, "train_phydiff": launches_train,
-                "pretrain": pre["launches"], "archs": launches_archs}
+    by_phase = {"sample_phydiff": launches_sample, "train_phydiff": phase6["launches"],
+                "pretrain": pre["launches"], "archs": launches_archs,
+                "train_bf16": launches_bf16, "bench": launches_bench}
 
     def entry(name, source, replaces):
         return kernel_entry(name, "cuda", source, replaces, kernels[name],
@@ -1765,10 +2402,10 @@ def main(argv: list) -> int:
         entry("gn_swish_backward", "srewd_tpu_torch/csrc/gn_swish.cu",
               "srewd_tpu/ops/pallas_fused.py:211"),
     ]})
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
+    say(smi)
+    say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -1777,5 +2414,6 @@ if __name__ == "__main__":
         rc = main(sys.argv[1:])
     except Exception:
         traceback.print_exc()
+        keep(traceback.format_exc())
         rc = 1
     sys.exit(rc)

@@ -15,7 +15,10 @@ Conventions:
     utils.{logging,seeding}) are the port's own copies: it imports nothing
     of `srewd_tpu`.
 
-Entry points: `python -m srewd_tpu_torch.{sample,train,pretrain}`.
+Entry points: `python -m srewd_tpu_torch.{sample,train,pretrain}`, and
+the benchmarks `python -m srewd_tpu_torch.{bench,bench_train,bench_all}`.
+The compute dtype (`build_model(dtype=)`, `cli.build_trainer(dtype=)`)
+casts float32 weights per call (models/layers.py), as flax's `dtype`.
 
 Hand-written kernels (CUDA C++, sm_90a, built by ops/_build.py):
   ops/flash_attention.py + csrc/flash_attention.cu, csrc/flash_attention_bwd.cu

@@ -68,19 +68,21 @@ def sampler_kwargs(opt: dict) -> dict:
     return kw
 
 
-def build_trainer(opt: dict, device: torch.device):
+def build_trainer(opt: dict, device: torch.device, dtype: torch.dtype | None = None):
     """The DiffusionTrainer of opt (counterpart of srewd_tpu.cli.build_trainer,
-    without the multihost branch): float32 model with seeded random weights,
-    the encoder from `pretrained_model.model_path` when the config names one
-    (after init, before resume), the optimizer with optional global-norm
-    clipping and finetune_norm, EMA, checkpoints, the sampler settings, and
-    resume."""
+    without the multihost branch): the model in the compute `dtype` (None:
+    float32) over float32 parameters with seeded random weights, the encoder
+    from `pretrained_model.model_path` when the config names one (after
+    init, before resume), the optimizer with optional global-norm clipping
+    and finetune_norm, EMA, checkpoints, the sampler settings, and resume.
+    Parameters, optimizer moments and the EMA are float32 whatever `dtype`
+    is."""
     from .diffusion.schedule import Schedule
     from .models.factory import build_model
     from .training.trainer import DiffusionTrainer
 
     with torch.device(device):  # parameters made on the device, not copied there
-        model = build_model(opt["model"])
+        model = build_model(opt["model"], dtype=dtype)
     init_weights(model, opt)
     bs = opt["model"]["beta_schedule"]
     ocfg = opt["train"]["optimizer"]

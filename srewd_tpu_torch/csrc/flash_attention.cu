@@ -46,8 +46,13 @@
 //
 // Training: with a non-null `lse` the kernel also writes each query row's
 // log-sum-exp m + log(l) of the scaled scores, float32 [B, N], which the
-// backward (flash_attention_bwd.cu) uses to recompute P. Nothing else
-// changes, so O is the same bit for bit with and without it.
+// backward (flash_attention_bwd.cu) uses to recompute P; with a non-null
+// `o32` (bfloat16 inputs) also O in float32, before its rounding, from which
+// the backward takes Δ = rowsum(dO ∘ O) as accurately as the TPU kernel's
+// float32 rowsum(P ∘ dP) (from the rounded O, Δ is off by up to a bf16 ulp
+// of |dO||O|, which dS = P (dP - Δ) carries into dQ, beyond two bf16 ulps
+// at D=512 with a training step's gradients).
+// Nothing else changes, so O is the same bit for bit with and without them.
 
 #include "attention_mma.cuh"
 
@@ -81,7 +86,8 @@ struct Fwd {
 template <typename T, int D, int WM, int WD, int BK>
 __global__ void __launch_bounds__(Fwd<T, D, WM, WD, BK>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int n, Strides st, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, float* __restrict__ o32, int n,
+                 Strides st, float scale) {
   using C = Fwd<T, D, WM, WD, BK>;
   constexpr int LD = C::LD, NS = C::NS, NO = C::NO, DW = C::DW, NT = C::kThreads;
 
@@ -164,6 +170,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
   const int row0 = q0 + wm * 16;
   store_rows<T, NO>(o + (long long)b * n * D, acc, D, row0, wd * DW, n, 1.f / l0, 1.f / l1);
+  if (o32 != nullptr)
+    store_rows<float, NO>(o32 + (long long)b * n * D, acc, D, row0, wd * DW, n, 1.f / l0,
+                          1.f / l1);
   if (lse != nullptr && wd == 0 && t == 0) {
     const int g = lane >> 2;
     if (row0 + g < n) lse[(long long)b * n + row0 + g] = (m[0] + log2f(l0)) * kLn2;
@@ -172,8 +181,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int D, int WM, int WD, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                   int n, Strides st, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, float* o32,
+                   int b, int n, Strides st, float scale, cudaStream_t stream) {
   using C = Fwd<T, D, WM, WD, BK>;
   auto kernel = flash_fwd_kernel<T, D, WM, WD, BK>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -182,7 +191,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   dim3 grid((n + C::BQ - 1) / C::BQ, b);
   kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, n, st, scale);
+      static_cast<T*>(o), lse, o32, n, st, scale);
   return cudaGetLastError();
 }
 
@@ -198,12 +207,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 //          at 16 keys already take 129 KB. N=512 at B=8 gives 256 blocks.
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o, float* lse,
-                     int b, int n, Strides st, float scale, cudaStream_t stream) {
+                     float* o32, int b, int n, Strides st, float scale, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64, 4, 1, 64>(q, k, v, o, lse, b, n, st, scale, stream);
-    case 128: return launch<T, 128, 4, 1, 32>(q, k, v, o, lse, b, n, st, scale, stream);
-    case 256: return launch<T, 256, 1, 4, 32>(q, k, v, o, lse, b, n, st, scale, stream);
-    case 512: return launch<T, 512, 1, 8, 16>(q, k, v, o, lse, b, n, st, scale, stream);
+    case 64: return launch<T, 64, 4, 1, 64>(q, k, v, o, lse, o32, b, n, st, scale, stream);
+    case 128: return launch<T, 128, 4, 1, 32>(q, k, v, o, lse, o32, b, n, st, scale, stream);
+    case 256: return launch<T, 256, 1, 4, 32>(q, k, v, o, lse, o32, b, n, st, scale, stream);
+    case 512: return launch<T, 512, 1, 8, 16>(q, k, v, o, lse, o32, b, n, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -213,16 +222,18 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. `lse`: null, or float32 [B, N] for the
-// rows' log-sum-exp. Returns the cudaError_t of the launch
+// rows' log-sum-exp. `o32`: null, or float32 [B, N, D] for O before its
+// rounding (bfloat16). Returns the cudaError_t of the launch
 // (cudaGetLastError() right after it), 0 on success. Does not synchronise.
 int srewd_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                              float* lse, int b, int n, int d, long long q_b, long long q_r,
-                              long long k_b, long long k_r, long long v_b,
+                              float* lse, float* o32, int b, int n, int d, long long q_b,
+                              long long q_r, long long k_b, long long k_r, long long v_b,
                               long long v_r, float scale, int dtype, void* stream) {
   Strides st{q_b, q_r, k_b, k_r, v_b, v_r};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(d, q, k, v, o, lse, b, n, st, scale, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(d, q, k, v, o, lse, b, n, st, scale, s);
+  if (dtype == 0) return (int)dispatch<float>(d, q, k, v, o, lse, o32, b, n, st, scale, s);
+  if (dtype == 1)
+    return (int)dispatch<__nv_bfloat16>(d, q, k, v, o, lse, o32, b, n, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,9 +10,9 @@
 // is the FA2 layout instead, in three launches:
 //   * Δ_i = rowsum(dO_i ∘ O_i), one warp per row. The TPU kernel takes
 //     rowsum(P ∘ dP) over the whole key row; the two are equal in exact
-//     arithmetic. In float32 they agree to rounding; in bfloat16 O is the
-//     stored (rounded) output, so Δ carries O's rounding (chip_smoke.py's
-//     bf16 tolerance says so);
+//     arithmetic and agree to float32 rounding, because O is the forward's
+//     float32 O also in bfloat16 (K1's `o32`, before its rounding: from the
+//     rounded O, Δ's error carried dQ beyond two bf16 ulps at D=512);
 //   * dK / dV: one block per (key tile, sample) loops over all query tiles
 //     and keeps its dK and dV tile in float32 registers. With the keys as
 //     the rows, S^T = K Q^T and dP^T = V dO^T come out in the accumulator
@@ -42,7 +42,7 @@
 // are written in the inputs' dtype, as `_flash_bwd` casts its float32
 // results. Layout: q, k, v are [B, N, D] with unit stride along D and any
 // batch and row stride, 16-byte aligned (the 1x1 qkv / kv convolutions'
-// slabs); o and dO are contiguous [B, N, D]; lse and the Δ scratch are
+// slabs); o (float32) and dO are contiguous [B, N, D]; lse and the Δ scratch are
 // float32 [B, N]; the outputs are contiguous [B, N, D]. The wrapper
 // allocates every buffer and checks the alignment.
 
@@ -63,15 +63,15 @@ struct Strides {
 
 template <typename T>
 __global__ void __launch_bounds__(kDeltaThreads)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta_kernel(const float* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int rows, int d) {
   const int row = (blockIdx.x * kDeltaThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const T* orow = o + (long long)row * d;
+  const float* orow = o + (long long)row * d;
   const T* grow = dout + (long long)row * d;
   float s = 0.f;
-  for (int c = lane; c < d; c += 32) s = fmaf(to_f32(orow[c]), to_f32(grow[c]), s);
+  for (int c = lane; c < d; c += 32) s = fmaf(orow[c], to_f32(grow[c]), s);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
@@ -281,8 +281,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    void* dv, int b, int n, Strides st, float scale, cudaStream_t stream) {
   const int rows = b * n;
   flash_bwd_delta_kernel<T><<<(rows * 32 + kDeltaThreads - 1) / kDeltaThreads, kDeltaThreads,
-                              0, stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
-                                           delta, rows, D);
+                              0, stream>>>(static_cast<const float*>(o),
+                                           static_cast<const T*>(dout), delta, rows, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -349,7 +349,9 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. `delta` is float32 [B, N] scratch.
+// dtype: 0 = float32, 1 = bfloat16, of q, k, v, dout, dq, dk and dv; `o` is
+// the forward's O in float32 [B, N, D] (bfloat16: K1's `o32`, before its
+// rounding). `delta` is float32 [B, N] scratch.
 // Returns the cudaError_t of the launches (cudaGetLastError() after each),
 // 0 on success. Does not synchronise.
 int srewd_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,

@@ -6,6 +6,10 @@ which is the layout both kernels read. Attribute names follow the reference
 torch modules (resnet.py, guided_cross_attention.py), which are also the
 names srewd_tpu/utils/torch_convert.py reads.
 
+Convolutions and linear layers are models/layers.py's: they compute in
+their input's dtype over float32 parameters (flax's `dtype`), so with a
+compute dtype the activations run in it from the UNet's stem on.
+
 Left out on purpose: the TPU-only paired / space-to-depth conv plumbing, the
 SPMD-mesh kernel routing and the HBM-slab chunking of the attention.
 """
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from ..ops.flash_attention import flash_attention_trainable
 from ..ops.fused_groupnorm import gn_swish_trainable
 from ..ops.resize import upsample_nearest2x
+from .layers import Conv2d, Linear
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -65,7 +70,7 @@ def NoiseLevelMLP(dim: int, activation: type = Swish) -> nn.Sequential:
     Indexed as the reference's `noise_level_mlp` (Linear layers at .1, .3).
     """
     return nn.Sequential(
-        PositionalEncoding(dim), nn.Linear(dim, dim * 4), activation(), nn.Linear(dim * 4, dim)
+        PositionalEncoding(dim), Linear(dim, dim * 4), activation(), Linear(dim * 4, dim)
     )
 
 
@@ -75,7 +80,7 @@ class FeatureWiseAffine(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.noise_func = nn.Sequential(nn.Linear(in_channels, out_channels))
+        self.noise_func = nn.Sequential(Linear(in_channels, out_channels))
 
     def forward(self, x: torch.Tensor, noise_embed: torch.Tensor) -> torch.Tensor:
         return x + self.noise_func(noise_embed)[:, :, None, None]
@@ -116,7 +121,7 @@ class Block(nn.Module):
             FusedGroupNorm(dim, groups, with_swish=True),
             nn.Identity(),
             nn.Dropout(dropout) if dropout > 0 else nn.Identity(),
-            nn.Conv2d(dim, dim_out, 3, padding=1),
+            Conv2d(dim, dim_out, 3, padding=1),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +137,7 @@ class ResnetBlock(nn.Module):
         self.noise_func = FeatureWiseAffine(noise_dim, dim_out)
         self.block1 = Block(dim, dim_out, groups=norm_groups)
         self.block2 = Block(dim_out, dim_out, groups=norm_groups, dropout=dropout)
-        self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
+        self.res_conv = Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
         h = self.block1(x)
@@ -156,8 +161,8 @@ class SelfAttention(nn.Module):
     def __init__(self, in_channel: int, norm_groups: int = 32):
         super().__init__()
         self.norm = FusedGroupNorm(in_channel, norm_groups)
-        self.qkv = nn.Conv2d(in_channel, in_channel * 3, 1, bias=False)
-        self.out = nn.Conv2d(in_channel, in_channel, 1)
+        self.qkv = Conv2d(in_channel, in_channel * 3, 1, bias=False)
+        self.out = Conv2d(in_channel, in_channel, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -174,9 +179,9 @@ class CrossAttention(nn.Module):
     def __init__(self, in_channel: int, query_channels: int, norm_groups: int = 32):
         super().__init__()
         self.norm = FusedGroupNorm(in_channel, norm_groups)
-        self.kv = nn.Conv2d(in_channel, in_channel * 2, 1, bias=False)
-        self.q = nn.Conv2d(query_channels, in_channel, 1, bias=False)
-        self.out = nn.Conv2d(in_channel, in_channel, 1)
+        self.kv = Conv2d(in_channel, in_channel * 2, 1, bias=False)
+        self.q = Conv2d(query_channels, in_channel, 1, bias=False)
+        self.out = Conv2d(in_channel, in_channel, 1)
 
     def forward(self, x: torch.Tensor, query_img: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -206,7 +211,7 @@ class Upsample(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.conv = nn.Conv2d(dim, dim, 3, padding=1)
+        self.conv = Conv2d(dim, dim, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(_nchw(upsample_nearest2x(_nhwc(x))))
@@ -217,7 +222,7 @@ class Downsample(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.conv = nn.Conv2d(dim, dim, 3, stride=2, padding=1)
+        self.conv = Conv2d(dim, dim, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -227,18 +232,18 @@ class ResSE(nn.Module):
     """Squeeze-excite with a residual, on NHWC: x * sigmoid(MLP(mean_HW(x))) + x.
 
     Bias-free MLP indexed as the reference's `fc` Sequential (Linear at .0
-    and .2). Its input is cast to the weights' dtype, as flax's compute
-    dtype does; the product with x keeps x's dtype.
+    and .2). The MLP runs in the compute dtype `dtype`, as flax's `dtype`
+    runs it over float32 params; the product with x promotes, as in JAX.
     """
 
     def __init__(self, channels: int, reduction: int = 2):
         super().__init__()
         hidden = max(channels // reduction, 1)
         self.fc = nn.Sequential(
-            nn.Linear(channels, hidden, bias=False), nn.ReLU(),
-            nn.Linear(hidden, channels, bias=False), nn.Sigmoid(),
+            Linear(channels, hidden, bias=False), nn.ReLU(),
+            Linear(hidden, channels, bias=False), nn.Sigmoid(),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.fc(x.mean(dim=(1, 2)).to(self.fc[0].weight.dtype))
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = self.fc(x.mean(dim=(1, 2)).to(dtype))
         return x * y[:, None, None, :] + x

@@ -20,16 +20,21 @@ adds l1(RRDB(LR), HR) to the loss (srdiff_diffusion.py:212-214).
 Loss: the eps-prediction error of one draw (t, gamma, noise), L1 mean by
 default, L2 selectable, with the UNet in train mode (dropout on).
 
-Training runs in float32. `generate_sr` with a compute dtype on the UNet
-casts the UNet's weights IN PLACE; the encoder computes in that dtype over
-its float32 weights (cast per call, never in place), as JAX casts only the
-UNet's params. A trainer must therefore never sample through its own
-float32 model with a dtype set (the port's trainer samples through a copy).
+Compute dtype (`build_model(dtype=)`): the UNet and the encoder keep
+float32 parameters and compute in the dtype, each layer casting its weights
+per call (models/layers.py), as flax's `dtype` does; training therefore
+steps float32 master weights with float32 gradients and moments. The loss
+keeps the UNet's output in the compute dtype and takes `noise - eps` in
+float32, as JAX promotes it. A reverse chain instead casts the UNet's
+weights once, into a shadow copy of the UNet that `denoiser` refreshes from
+the master weights at the start of each chain (the JAX package pre-casts
+its params once, outside the scan); the master weights never change dtype.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from typing import Optional, Sequence
 
@@ -66,6 +71,8 @@ class DiffusionModel:
     loss_type: str = "l1"
     lock_encoder: bool = True
     use_encoder_prediction: bool = False
+    # the UNet's weights in its compute dtype, for reverse chains (`_chain_unet`)
+    _shadow: Optional[WeatherUNet] = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.arch not in ARCHS:
@@ -78,7 +85,26 @@ class DiffusionModel:
         self.unet.to(device)
         if self.encoder is not None:
             self.encoder.to(device)
+        self._shadow = None
         return self
+
+    @torch.no_grad()
+    def _chain_unet(self) -> WeatherUNet:
+        """The UNet a reverse chain calls, in eval mode: the UNet itself in
+        float32; with a compute dtype, a shadow copy whose parameters are the
+        master weights cast to it, refreshed here (once per chain)."""
+        dt = self.unet.dtype
+        if dt is None:
+            return self.unet.eval()
+        params = list(self.unet.parameters())
+        shadow = self._shadow
+        if shadow is None or shadow.dtype != dt or params[0].device != next(
+                shadow.parameters()).device:
+            memo = {id(p): nn.Parameter(torch.empty_like(p, dtype=dt), requires_grad=False)
+                    for p in params}
+            shadow = self._shadow = copy.deepcopy(self.unet, memo)
+        torch._foreach_copy_(list(shadow.parameters()), params)
+        return shadow.eval()
 
     def _encoder_grad(self):
         return torch.no_grad() if self.lock_encoder else contextlib.nullcontext()
@@ -129,10 +155,6 @@ class DiffusionModel:
         unless handed in (tests feed the JAX draws); dropout draws from the
         device's default generator.
         """
-        if self.unet.dtype is not None:
-            raise NotImplementedError(
-                "training runs in float32; bf16 training with float32 master weights "
-                "is ROADMAP.md Queue 1 item 4")
         hr = batch["HR"]
         cond = self.condition(batch)
         x_start = hr if self.arch == "sr3" else hr - cond
@@ -145,7 +167,7 @@ class DiffusionModel:
         if self.arch in _RRDB_ARCHS:
             rrdb_sr, kwargs["rrdb_feats"] = self.encode_rrdb(batch["LR"])
         self.unet.train(train)
-        eps = self.unet(self._x_in(cond, x_noisy), gamma, **kwargs)
+        eps = self.unet(self._x_in(cond, x_noisy), gamma, **kwargs)  # in the compute dtype
         if self.loss_type == "l1":
             loss = (noise - eps).abs().mean()
         elif self.loss_type == "l2":
@@ -161,22 +183,21 @@ class DiffusionModel:
         """(condition, denoise_fn(x_t, noise_level) -> eps) of a reverse chain.
 
         The chain-constant conditioning (RRDB taps, DWT pyramid, the
-        spliter's frequency maps, stencil maps) is computed here, once. With
-        a compute dtype on the UNet, its weights are cast here, in place.
+        spliter's frequency maps, stencil maps) is computed here, once, and
+        so is the cast of the UNet's weights to its compute dtype
+        (`_chain_unet`).
         """
         cond = self.condition(batch).float()
         kwargs = {}
         if self.arch in _RRDB_ARCHS:
             _, kwargs["rrdb_feats"] = self.encode_rrdb(batch["LR"])
-        if self.unet.dtype is not None:
-            self.unet.to(self.unet.dtype)  # no-op once cast
-        self.unet.eval()
+        unet = self._chain_unet()
         kwargs.update(self._conditioning(cond))
-        if hasattr(self.unet, "fd_spliter"):
-            kwargs["cond_feats"] = self.unet(cond, cond_features_only=True)
+        if hasattr(unet, "fd_spliter"):
+            kwargs["cond_feats"] = unet(cond, cond_features_only=True)
 
         def denoise_fn(x_t, noise_level):
-            return self.unet(self._x_in(cond, x_t), noise_level, **kwargs)
+            return unet(self._x_in(cond, x_t), noise_level, **kwargs)
 
         return cond, denoise_fn
 
@@ -243,10 +264,7 @@ class DiffusionModel:
         UNet sees x_t alone; [B, image_height, image_width, image_channels]."""
         if self.conditional:
             raise ValueError("unconditional sample() requires conditional=False")
-        u = self.unet
-        if u.dtype is not None:
-            u.to(u.dtype)
-        u.eval()
+        u = self._chain_unet()
         shape = (batch_size, u.image_height, u.image_width, u.image_channels)
         return sample_chain(schedule, lambda x_t, lvl: u(x_t, lvl), shape, device=device,
                             generator=generator, init=init, noises=noises,

@@ -22,8 +22,9 @@ computes them once (`cond_features`) and hands them to every step as
 `noise_resSE`, `sigma_resSE`, `HF_guided_resSE`, `channel_transform`),
 which srewd_tpu/utils/torch_convert.py reads.
 
-Tensors are NHWC; Linear and conv inputs are cast to their weights' dtype,
-as flax's compute dtype does.
+Tensors are NHWC. The Linear, the conv and the ResSE MLPs run in the
+compute dtype `dtype` that the UNet hands in, over float32 parameters
+(models/layers.py), as flax's `dtype` does; the stack keeps x's dtype.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from .blocks import ResSE
+from .layers import Conv2d, Linear
 
 
 class FDInfoSpliter(nn.Module):
@@ -42,11 +44,11 @@ class FDInfoSpliter(nn.Module):
         super().__init__()
         c = image_channels
         self.image_channels = c
-        self.noise_func = nn.Linear(noise_dim, image_width)
+        self.noise_func = Linear(noise_dim, image_width)
         self.noise_resSE = ResSE(c, reduction=1 if c == 1 else 2)
         self.sigma_resSE = ResSE(2 * c, reduction=2)
         self.HF_guided_resSE = ResSE(2 * c, reduction=2)
-        self.channel_transform = nn.Conv2d(2 * c, out_channels, 1)
+        self.channel_transform = Conv2d(2 * c, out_channels, 1)
 
     @staticmethod
     def out_channels(image_channels: int, out_channels: int) -> int:
@@ -54,22 +56,22 @@ class FDInfoSpliter(nn.Module):
         (the condition times a map of out_channels, broadcast)."""
         return 4 * image_channels + max(image_channels, out_channels)
 
-    def forward(self, x: torch.Tensor, noise_embed: torch.Tensor,
+    def forward(self, x: torch.Tensor, noise_embed: torch.Tensor, dtype: torch.dtype,
                 cond_feats: Optional[tuple] = None) -> torch.Tensor:
         """x [B,H,W,2C] = concat(condition, noisy) -> the [B,H,W,5C] stack."""
         c = self.image_channels
         cnn_x, xn = x[..., :c], x[..., c:]
         b, h, w, _ = x.shape
-        ne = self.noise_func(noise_embed.to(self.noise_func.weight.dtype))
+        ne = self.noise_func(noise_embed.to(dtype))
         ne = ne[:, None, :, None].expand(b, h, w, c).to(x.dtype)
-        denoise_x = xn * self.noise_resSE(ne)
+        denoise_x = xn * self.noise_resSE(ne, dtype)
         if cond_feats is None:
-            x_lf, x_hf = self.cond_features(cnn_x)
+            x_lf, x_hf = self.cond_features(cnn_x, dtype)
         else:
             x_lf, x_hf = (f.to(x.dtype) for f in cond_feats)
         return torch.cat([xn, cnn_x, denoise_x, x_lf, x_hf], dim=-1)
 
-    def cond_features(self, cnn_x: torch.Tensor) -> tuple:
+    def cond_features(self, cnn_x: torch.Tensor, dtype: torch.dtype) -> tuple:
         """The chain-invariant (low-frequency, high-frequency) maps of the
         condition [B,H,W,C]."""
         _, h, w, _ = cnn_x.shape
@@ -77,7 +79,7 @@ class FDInfoSpliter(nn.Module):
         x_fd = torch.cat([spec.real, spec.imag], dim=-1).to(cnn_x.dtype)
 
         side = float(min(h, w))
-        se = self.sigma_resSE(x_fd)
+        se = self.sigma_resSE(x_fd, dtype)
         sigma = torch.clamp(se.float().mean(dim=(1, 2, 3)).abs() + side / 2.0, max=side - 10.0)
         u = torch.arange(h, dtype=torch.float32, device=cnn_x.device) - h / 2.0
         v = torch.arange(w, dtype=torch.float32, device=cnn_x.device) - w / 2.0
@@ -86,9 +88,8 @@ class FDInfoSpliter(nn.Module):
 
         filtered = spec * hp[..., None].to(torch.complex64)
         x_fd_filtered = torch.cat([filtered.real, filtered.imag], dim=-1).to(cnn_x.dtype)
-        hf_atten = self.HF_guided_resSE(x_fd_filtered)
-        conv = self.channel_transform
-        lf_map = conv(hf_atten.to(conv.weight.dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        hf_atten = self.HF_guided_resSE(x_fd_filtered, dtype)
+        lf_map = self.channel_transform(hf_atten.to(dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         x_lf = cnn_x * lf_map
         x_hf = torch.fft.ifftn(filtered, dim=(1, 2)).abs().to(cnn_x.dtype)
         return x_lf, x_hf

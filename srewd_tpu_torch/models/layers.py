@@ -1,0 +1,41 @@
+"""Convolution and linear layers that compute in their input's dtype.
+
+Flax's `dtype` casts a layer's float32 params and its input to the compute
+dtype on every call; the params stay float32 and their gradients come back
+float32. These subclasses of torch's layers do the same: `forward` casts
+weight and bias to the input's dtype per call (a no-op when they match),
+and the parameters, their names and their dtype never change. A module
+that computes in a dtype other than its input's casts the input first, as
+the UNet does before its stem and ResSE before its MLP.
+
+bf16 sampling casts the weights once per chain instead, into a shadow copy
+of the UNet (models/factory.py), as the JAX package pre-casts its params
+outside the scan; then every cast here is a no-op.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def _cast(p, dtype):
+    return None if p is None else p.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+                                  self.stride, self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))

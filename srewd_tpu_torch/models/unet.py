@@ -24,7 +24,10 @@ ResnetBlockWithAttn / Downsample), `mid`, `ups`, `hf_ca_list` and
 srewd_tpu/utils/torch_convert.py and back by utils/jax_params.py.
 
 `forward` takes and returns NHWC tensors, as the JAX module does; inside,
-activations are NCHW in channels_last memory.
+activations are NCHW in channels_last memory. With a compute `dtype` the
+input, the noise embedding, the queries and the RRDB taps are cast to it
+and every layer casts its float32 weights per call (models/layers.py), so
+the output is in that dtype, as flax's `dtype` gives it.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from .blocks import (
     Upsample,
 )
 from .fd_info_spliter import FDInfoSpliter
+from .layers import Conv2d, ConvTranspose2d
 
 VARIANTS = ("sr3", "resdiff", "phydiff", "srdiff", "physrdiff")
 _J = 4  # wavelet pyramid levels feeding the cross-attention (resdiff/unet.py:73)
@@ -98,12 +102,12 @@ class WeatherUNet(nn.Module):
         if uses_rrdb:
             # x4 transposed conv of the concatenated RRDB taps (feats[2::3]);
             # torch's k=8, s=4, p=2 is flax's 'SAME' with the kernel flipped
-            self.cond_proj = nn.ConvTranspose2d(
+            self.cond_proj = ConvTranspose2d(
                 rrdb_num_feats * (rrdb_num_blocks + 1) // 3, inner_channel, 8, 4, 2)
             # the reference's downs index 2, clamped to the last full-res block
             self.inject_at = min(2, res_blocks)
         query_channels = (1 if variant == "resdiff" else 3) * image_channels
-        downs: list = [nn.Conv2d(stem_in, inner_channel, 3, padding=1)]
+        downs: list = [Conv2d(stem_in, inner_channel, 3, padding=1)]
         hf_ca = []
         feat_channels = [inner_channel]
         pre_channel = inner_channel
@@ -180,9 +184,9 @@ class WeatherUNet(nn.Module):
         given. cond_features_only: x is the bare condition image; return the
         spliter's (low, high) frequency maps and nothing else.
         """
-        if cond_features_only:
-            return self.fd_spliter.cond_features(x)
         dt = self.dtype or torch.float32
+        if cond_features_only:
+            return self.fd_spliter.cond_features(x, dt)
         c_img = self.image_channels
         mlp = self.noise_level_mlp  # the encoding is f32; the Linear layers run in dt
         t = mlp[1:](mlp[0](noise_level).to(dt))
@@ -197,7 +201,7 @@ class WeatherUNet(nn.Module):
                 raise ValueError(f"variant {self.variant} requires rrdb_feats")
             cond = self.cond_proj(rrdb_feats.to(dt).permute(0, 3, 1, 2))
         if hasattr(self, "fd_spliter"):
-            x = self.fd_spliter(x, t, cond_feats=cond_feats)
+            x = self.fd_spliter(x, t, dt, cond_feats=cond_feats)
         elif self.variant == "phydiff":
             maps = fd_maps if fd_maps is not None else fd_stencils(x[..., :c_img])
             x = torch.cat([x, maps.to(x.dtype)], dim=-1)

@@ -31,10 +31,13 @@ def reference_ops():
 def use_plain(x: torch.Tensor) -> bool:
     """True when a wrapper must take its plain version for `x`.
 
-    CPU tensors always do; CUDA tensors only inside `reference_ops()`. Any
-    other device raises, so nothing quietly runs somewhere unexpected.
+    CPU tensors always do; CUDA tensors, and meta tensors (bench_train
+    counts the plain path's FLOPs on them), only inside `reference_ops()`.
+    Any other device raises, so nothing quietly runs somewhere unexpected.
     """
     if x.device.type == "cpu":
+        return True
+    if x.device.type == "meta" and _FORCE_PLAIN.get():
         return True
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")

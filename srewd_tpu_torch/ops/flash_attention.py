@@ -37,15 +37,22 @@ _fwd_lib = None
 _bwd_lib = None
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulation dtype: float32, or float64 for
+    float64 inputs (chip_smoke.py's float64 reference gradients)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> torch.Tensor:
     """Plain PyTorch version, with the TPU kernel's numerics: float32 scores
     and softmax, P cast to V's dtype before P V, float32 sums, output in
     Q's dtype."""
     attention_reference.calls += 1
-    s = torch.einsum("bid,bjd->bij", q.float(), k.float()) * scale
+    acc = _acc(q)
+    s = torch.einsum("bid,bjd->bij", q.to(acc), k.to(acc)) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bij,bjd->bid", p.float(), v.float()).to(q.dtype)
+    return torch.einsum("bij,bjd->bid", p.to(acc), v.to(acc)).to(q.dtype)
 
 
 attention_reference.calls = 0
@@ -58,7 +65,8 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     * scale, dQ = dS K, dK = dS^T Q, dV = P^T dO, all in float32, each cast
     to its input's dtype."""
     attention_backward_reference.calls += 1
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    acc = _acc(q)
+    qf, kf, vf, dof = q.to(acc), k.to(acc), v.to(acc), do.to(acc)
     p = torch.softmax(torch.einsum("bid,bjd->bij", qf, kf) * scale, dim=-1)
     dp = torch.einsum("bid,bjd->bij", dof, vf)
     delta = (p * dp).sum(dim=-1, keepdim=True)
@@ -78,7 +86,7 @@ def _library():
         lib = _build.load("flash_attention")
         lib.srewd_flash_attention_fwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
@@ -149,8 +157,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
     CPU tensors take `attention_reference`; CUDA tensors launch the kernel
     (float32 or bfloat16, D in SUPPORTED_D) or raise. With `return_lse`
-    (CUDA only) it returns (o, lse), lse the rows' float32 log-sum-exp of
-    the scaled scores, [B,N].
+    (CUDA only) it returns (o, lse, o32), lse the rows' float32 log-sum-exp
+    of the scaled scores, [B,N], and o32 O in float32 before its rounding
+    (o itself for float32 inputs): what the backward, K2, takes.
     """
     if use_plain(q):
         if return_lse:
@@ -160,11 +169,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     b, n, d = q.shape
     lib = _library()
     o = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, n), dtype=torch.float32, device=q.device) if return_lse else None
+    lse = o32 = None
+    if return_lse:
+        lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
+        o32 = o if q.dtype == torch.float32 else torch.empty(
+            (b, n, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.srewd_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
+            o32.data_ptr() if o32 is not None and o32 is not o else None,
             b, n, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             float(scale), _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
@@ -173,7 +187,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         msg = lib.srewd_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
     flash_attention.launches += 1
-    return (o, lse) if return_lse else o
+    return (o, lse, o32) if return_lse else o
 
 
 flash_attention.launches = 0
@@ -184,9 +198,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              scale: float):
     """(dq, dk, dv) of flash_attention for the output gradient `do`; K2.
 
-    `o` and `lse` are K1's output and row log-sum-exp for the same q, k, v.
-    CUDA tensors only: the backward's plain version is
-    `attention_backward_reference`, which `FlashAttentionFn` takes itself.
+    `o` and `lse` are K1's float32 output (`o32` of its training outputs)
+    and row log-sum-exp for the same q, k, v; an `o` in another dtype is
+    taken in float32 as it is. CUDA tensors only: the backward's plain
+    version is `attention_backward_reference`, which `FlashAttentionFn`
+    takes itself.
     """
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_backward launches a CUDA kernel; got {q.device}")
@@ -194,7 +210,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, n, d = q.shape
     if o.shape != q.shape or lse.shape != (b, n) or lse.dtype != torch.float32:
         raise ValueError("o must be [B,N,D] and lse float32 [B,N], from the forward")
-    o = o.to(q.dtype).contiguous()
+    o = o.float().contiguous()
     do = do.to(q.dtype).contiguous()
     lse = lse.contiguous()
     _check_aligned("flash_attention_backward", "do", do)
@@ -222,7 +238,8 @@ flash_attention_backward.launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """K1 forward (saving the row log-sum-exp) and K2 backward; on the plain
+    """K1 forward (saving the row log-sum-exp and the float32 O) and K2
+    backward; on the plain
     route, `attention_reference` and `attention_backward_reference`."""
 
     @staticmethod
@@ -232,8 +249,8 @@ class FlashAttentionFn(torch.autograd.Function):
         if ctx.plain:
             ctx.save_for_backward(q, k, v)
             return attention_reference(q, k, v, scale)
-        o, lse = flash_attention(q, k, v, scale, return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse, o32 = flash_attention(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o32, lse)
         return o
 
     @staticmethod
@@ -242,8 +259,8 @@ class FlashAttentionFn(torch.autograd.Function):
             q, k, v = ctx.saved_tensors
             dq, dk, dv = attention_backward_reference(q, k, v, do, ctx.scale)
         else:
-            q, k, v, o, lse = ctx.saved_tensors
-            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, ctx.scale)
+            q, k, v, o32, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_backward(q, k, v, o32, lse, do, ctx.scale)
         return dq, dk, dv, None
 
 

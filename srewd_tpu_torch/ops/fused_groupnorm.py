@@ -155,12 +155,13 @@ def gn_plan(shape, groups: int, dtype: torch.dtype, backward: bool = False) -> G
 def _gn_swish_math(x, weight, bias, num_groups, eps, apply_swish, return_stats=False):
     b, h, w, c = x.shape
     cg = c // num_groups
-    x32 = x.float().reshape(b, h * w, num_groups, cg)
+    acc = torch.promote_types(x.dtype, torch.float32)  # float64 stays float64
+    x32 = x.to(acc).reshape(b, h * w, num_groups, cg)
     mean = x32.mean(dim=(1, 3), keepdim=True)
     var = x32.square().mean(dim=(1, 3), keepdim=True) - mean.square()
     rstd = torch.rsqrt(var + eps)
     y = ((x32 - mean) * rstd).reshape(b, h, w, c)
-    y = (y * weight.float() + bias.float()).to(x.dtype)
+    y = (y * weight.to(acc) + bias.to(acc)).to(x.dtype)
     if apply_swish:
         y = y * torch.sigmoid(y)
     if return_stats:

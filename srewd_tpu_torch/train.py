@@ -9,7 +9,10 @@ experiments/<name>_<yymmdd_HHMMSS>/{logs,results,checkpoint,...}; with
 "auto" for the newest of this experiment name) it resumes there. The UNet
 gets seeded random weights from the config's `seed` (default 0).
 
-Training runs in float32. On a CUDA device TF32 is switched off and cuDNN
+Training runs in float32 here; bf16 over float32 master weights is
+`cli.build_trainer(opt, device, dtype=torch.bfloat16)` (the JAX package's
+train.py has no dtype flag either; `bench_train` reaches it). On a CUDA
+device TF32 is switched off and cuDNN
 is held to deterministic algorithms, chosen by timing on each shape's first
 call (cli.cuda_numerics), so a resumed run in the same process repeats the
 steps of the run it resumes. `--device` defaults to the card; a CUDA

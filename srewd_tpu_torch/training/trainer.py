@@ -21,10 +21,19 @@ checkpoint, in resume and in the EMA (JAX's EMA maps over the whole params
 tree). The UNet's entries keep their names (`params`, `ema_params`); the
 encoder's are `encoder_params` and `ema_encoder_params`.
 
+With a compute dtype on the model (`cli.build_trainer(dtype=)`), the
+parameters, their gradients, Adam's moments and the EMA stay float32: each
+layer casts its weights per call (models/layers.py).
+
 Validation samples through a separate copy of the model, loaded with the
 trainer's weights or the EMA, never through the trainer's own modules.
-Left out (ROADMAP.md Queue 1): the device data cache and prefetcher, wandb,
-PNG visualisation.
+
+`run_training` feeds the steps from `train.device_data_cache`'s
+DeviceDataset (the split resident on the device) or else through a
+DevicePrefetcher (host batches assembled and copied ahead in a background
+thread), and captures a torch.profiler trace of `train.profile_steps` steps
+from `train.profile_start` into `train.profile_trace_dir` when it is set.
+Left out (ROADMAP.md Queue 1): wandb, PNG visualisation.
 """
 
 from __future__ import annotations
@@ -37,9 +46,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data.device_cache import DeviceDataset
+from ..data.prefetch import DevicePrefetcher, PinnedCopy
 from ..diffusion.schedule import Schedule
 from ..models.factory import DiffusionModel
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, annotate, trace
 from .checkpoint import CheckpointManager
 from .metrics import TrainMetrics, ValidationMetrics, create_metric_dict
 from .optimizers import clip_by_global_norm_, get_optimizer, norm_parameters
@@ -163,8 +174,18 @@ class DiffusionTrainer:
 
     # ------------------------------------------------------------------ steps
     def _device_batch(self, batch: dict) -> dict:
+        """HR and LR on the trainer's device; a tensor already there is taken
+        as it is (DeviceDataset's and DevicePrefetcher's batches)."""
         return {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
                 for k in ("HR", "LR")}
+
+    def prefetch(self, batches, depth: int = 2) -> DevicePrefetcher:
+        """`batches` put on the trainer's device `depth` ahead, in a background
+        thread: on the card by pinned, non-blocking copies on a side stream."""
+        if self.device.type == "cuda":
+            pinned = PinnedCopy(self.device)
+            return DevicePrefetcher(batches, pinned.put, depth, take_fn=pinned.take)
+        return DevicePrefetcher(batches, self._device_batch, depth)
 
     def train_on_batch_async(self, batch: dict) -> torch.Tensor:
         """One train step; returns the loss as a device scalar without reading it."""
@@ -172,14 +193,17 @@ class DiffusionTrainer:
         self._generator.manual_seed(step_seed(self.seed, self.step))
         _seed_default_generator(self.device, step_seed(self.seed, self.step, 1))
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.loss(b, self.schedule_train, generator=self._generator, train=True)
-        loss.backward()
-        if self.grad_clip is not None:
-            clip_by_global_norm_(self.trainable, self.grad_clip)
-        self.optimizer.step()
-        self.step += 1
-        if self.ema is not None and self.step >= self.ema_start:
-            self._ema_update()
+        with annotate("loss"):
+            loss = self.model.loss(b, self.schedule_train, generator=self._generator, train=True)
+        with annotate("backward"):
+            loss.backward()
+        with annotate("optimizer"):
+            if self.grad_clip is not None:
+                clip_by_global_norm_(self.trainable, self.grad_clip)
+            self.optimizer.step()
+            self.step += 1
+            if self.ema is not None and self.step >= self.ema_start:
+                self._ema_update()
         return loss.detach()
 
     def train_on_batch(self, batch: dict) -> float:
@@ -231,8 +255,12 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
     """The train driver loop at the reference's cadence: n_iter steps; every
     print_freq, read the pending losses and log them; every val_freq,
     validate (one batch, or the whole val set when full_val_freq divides
-    the step); every save_checkpoint_freq, save. Returns
-    {"losses": [(step, loss)], "val": [(step, metrics)], "steps_per_sec"}.
+    the step); every save_checkpoint_freq, save. Batches come from the
+    device-resident split (`train.device_data_cache`) or a DevicePrefetcher.
+    With `train.profile_trace_dir`, steps [profile_start, profile_start +
+    profile_steps) are traced there (defaults 10 and 5). Returns
+    {"losses": [(step, loss)], "val": [(step, metrics)], "steps_per_sec",
+    "trace": the trace file or None}.
     """
     logger = logger or logging.getLogger("base")
     tcfg = opt["train"]
@@ -242,12 +270,17 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
     full_val_freq = int(tcfg.get("full_val_freq", val_freq))
     save_freq = int(tcfg.get("save_checkpoint_freq", 10000))
     ema_val = bool((tcfg.get("ema_scheduler") or {}).get("use_for_val", False))
+    profile_dir = tcfg.get("profile_trace_dir")
+    profile_start = int(tcfg.get("profile_start", 10))
+    profile_steps = int(tcfg.get("profile_steps", 5))
 
     train_metrics = TrainMetrics()
     timer = StepTimer()
     losses: list = []
     vals: list = []
     pending: list = []  # (step, device loss) not read yet
+    window = None  # the open capture: (its context, the profiler, its last step)
+    trace_path = None
 
     def flush_losses() -> None:
         if not pending:
@@ -257,6 +290,22 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
             losses.append((step, v))
             train_metrics.update({"l_pix": v})
         pending.clear()
+
+    def close_window() -> None:
+        nonlocal window, trace_path
+        flush_losses()  # the traced steps have run once their losses are read
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        (cm, prof, last), window = window, None
+        cm.__exit__(None, None, None)
+        trace_path = prof.trace_path
+        logger.info(f"Profiler trace to step {last} written to {trace_path}.")
+
+    device_cache = None
+    if tcfg.get("device_data_cache"):
+        device_cache = DeviceDataset(data_handler, trainer.device, "train")
+        logger.info(f"Device data cache: {device_cache.nbytes / 1e6:.0f} MB "
+                    f"({len(device_cache)} fields) resident on {trainer.device}.")
 
     # resume inside an epoch: skip the batches the checkpoint's steps consumed
     spe = data_handler.steps_per_epoch("train")
@@ -268,33 +317,58 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
     else:
         skip = 0
     timer.start()
-    while trainer.step < n_iter:
-        trainer.epoch += 1
-        for batch in data_handler.train_batches(epoch=trainer.epoch, skip=skip):
-            if trainer.step >= n_iter:
-                break
-            pending.append((trainer.step + 1, trainer.train_on_batch_async(batch)))
-            timer.tick()
-            if trainer.step % print_freq == 0:
-                flush_losses()
-                logger.info(
-                    f"Epoch: {trainer.epoch:5}  |  Iteration: {trainer.step:8} |"
-                    f" {train_metrics.metrics2str()} | {timer.summary_str()}"
-                )
-                train_metrics.reset()
-            if trainer.step % val_freq == 0:
-                full = trainer.step % full_val_freq == 0
-                metrics = run_validation(opt, data_handler, trainer, logging.getLogger("val"),
-                                         max_batches=None if full else 1, use_ema=ema_val)
-                vals.append((trainer.step, metrics))
-            if trainer.step % save_freq == 0:
-                logger.info("Saving models and training states.")
-                trainer.save()
-        skip = 0
+    try:
+        while trainer.step < n_iter:
+            trainer.epoch += 1
+            if device_cache is not None:
+                batches = device_cache.batches(epoch=trainer.epoch, skip=skip)
+            else:
+                batches = trainer.prefetch(
+                    data_handler.train_batches(epoch=trainer.epoch, skip=skip))
+            try:
+                for batch in batches:
+                    if trainer.step >= n_iter:
+                        break
+                    if profile_dir and trainer.step >= profile_start:
+                        cm = trace(profile_dir)
+                        window = (cm, cm.__enter__(), trainer.step + profile_steps)
+                        profile_dir = None  # one capture per run
+                    with annotate("train_step"):
+                        pending.append((trainer.step + 1, trainer.train_on_batch_async(batch)))
+                    timer.tick()
+                    if window is not None and trainer.step >= window[2]:
+                        close_window()
+                    if trainer.step % print_freq == 0:
+                        flush_losses()
+                        logger.info(
+                            f"Epoch: {trainer.epoch:5}  |  Iteration: {trainer.step:8} |"
+                            f" {train_metrics.metrics2str()} | {timer.summary_str()}"
+                        )
+                        train_metrics.reset()
+                    if trainer.step % val_freq == 0:
+                        full = trainer.step % full_val_freq == 0
+                        with annotate("validation"):
+                            metrics = run_validation(
+                                opt, data_handler, trainer, logging.getLogger("val"),
+                                max_batches=None if full else 1, use_ema=ema_val)
+                        vals.append((trainer.step, metrics))
+                    if trainer.step % save_freq == 0:
+                        logger.info("Saving models and training states.")
+                        trainer.save()
+            finally:
+                if isinstance(batches, DevicePrefetcher):
+                    batches.close()
+            skip = 0
+        if window is not None:  # training ended inside the window
+            close_window()
+    finally:
+        if window is not None:  # an exception inside the window
+            window[0].__exit__(None, None, None)
     flush_losses()
     logger.info("End of training.")
     trainer.save()
-    return {"losses": losses, "val": vals, "steps_per_sec": timer.steps_per_sec}
+    return {"losses": losses, "val": vals, "steps_per_sec": timer.steps_per_sec,
+            "trace": trace_path}
 
 
 def run_validation(opt: dict, data_handler, trainer: DiffusionTrainer,
