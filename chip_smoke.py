@@ -2,11 +2,12 @@
 """Drive the PyTorch port's sampling, training and pretraining paths of
 every residual architecture on one CUDA card and check them.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-12
+    python3 chip_smoke.py                  # the smoke run, phases 1-13
     python3 chip_smoke.py --profile        # phases 1-2, then the UNet profile
     python3 chip_smoke.py --train-kernels  # phases 1-2, the shapes, the bf16 step's kernels
     python3 chip_smoke.py --stress N       # phases 1-6, then steps 7 and 10 N times each
     python3 chip_smoke.py --bf16-step N    # phases 1-2, then phase 11's step at N draw seeds
+    python3 chip_smoke.py --serve          # phases 1-2, phase 3's shapes, phase 6, phase 13
 
 Phases, one JSON line each (`t_sec`: seconds since the start); any failure
 exits non-zero before the result. Every line, and a failure's traceback,
@@ -145,27 +146,52 @@ with an option), whole:
                 window), and for 4 steps with `train.device_data_cache`
                 against the same 4 through the prefetcher (losses equal bit
                 for bit).
-  --profile — instead of 3-12: per dtype, one full-width UNet call by host
+ 13. serve    — the serving layer on phase 6's phydiff checkpoint, float32,
+                DPM-25, batch 8 (`SamplerService.from_checkpoint`): its HTTP
+                front end on localhost takes 24 fields from 7 concurrent
+                clients (sizes 5 3 1 4 2 6 3); each device batch must match
+                generate_sr of its packed batch (relative RMSE <= 1e-5:
+                float32 sums in another order; `bit_identical` says whether
+                it is exact), each served field its row (1e-3 K), inside a
+                Kelvin range; K1 and K3 launched (device batches) x 25 x
+                (their calls per UNet call), no plain version. Then
+                `python -m srewd_tpu_torch.export_sampler` of the same
+                checkpoint on the card (`export_sec`): the step program
+                must hold one srewd::flash_attention and srewd::gn_swish
+                node per K1 and K3 call of an eager UNet call, the
+                conditioning program none; the artifact loaded in a fresh
+                process at batch 3 and 8 must be within 1e-4 relative RMSE
+                of generate_sr at the same seed (the residual, normalized),
+                launch K1 and K3 25 x (calls per UNet call) times a call and
+                import no model code. `op_dispatch`: host µs of one K1 and
+                K3 call through the wrapper and through the custom op.
+                Last, `python -m srewd_tpu_torch.bench_serve` at its
+                full-width defaults (sr3, bf16, DPM-25, 108 fields), its
+                JSON line passed through.
+  --profile — instead of 3-13: per dtype, one full-width UNet call by host
                 clock and by torch.profiler's device time per kernel, the card's
                 idle share, and one DDIM-50 generate_sr (see profile_unet).
-  --train-kernels — instead of 3-12: per batch 4 and 16, bf16, K1 with its
+  --train-kernels — instead of 3-13: per batch 4 and 16, bf16, K1 with its
                 row LSE, K2, K3 with its statistics and K3's backward per
                 phydiff training step, with plain and library times and the
                 bound (see train_kernel_table); then a bf16 and a float32
                 phydiff step profiled (profile_train_steps).
-  --stress N — instead of 7-12, after phases 1-6 as in the smoke run:
+  --stress N — instead of 7-13, after phases 1-6 as in the smoke run:
                 phase 7's and phase 10's training steps N times each with
                 the cuDNN settings phase 6 leaves, every kernel
                 launch repeated (bit-identical) and held against its plain
                 version call by call, odd repeats in NaN-poisoned memory
                 (see stress_step).
-  --bf16-step N — instead of 3-12: phase 11's bf16 step, kernels against
+  --serve — phases 1-2, phase 3's shapes and `unet_call` lines, phase 6,
+                then phase 13 (no kernels line).
+  --bf16-step N — instead of 3-13: phase 11's bf16 step, kernels against
                 plain under the same bound, at draw seeds 3 .. N+2 (phase 11
                 takes seed 3), with the cuDNN settings phase 11 meets.
 Then the kernels' summary line, the card's name and power limit, and the
 result line. In the summary line, `launches` counts the kernel's launches in
 the main-path runs, each counted from 0: phase 4, the first run of phase 6,
-phases 8, 9, 11 and 12 (`launches_by_phase` splits them; the launches that
+phases 8, 9, 11, 12 and 13 (phase 13's loaded artifact counted in its own
+process; `launches_by_phase` splits them; the launches that
 hold a kernel against its plain version are not among them); `ms`, `plain_ms`,
 `library_ms` and `bound_ms` are device time per main-path unit, float32:
 one UNet call at batch 8 for K1 and K3, one training step at batch 4 for K2
@@ -999,6 +1025,8 @@ def run_train_slice(torch, workdir, device) -> dict:
     launches, plain_calls = read_counts()
     ckpts = glob.glob(os.path.join(workdir, "experiments", "*", "checkpoint", "I10_E*"))
     check(len(ckpts) == 1, f"expected one step-10 checkpoint, found {ckpts}")
+    final = glob.glob(os.path.join(os.path.dirname(ckpts[0]), "I20_E*"))
+    check(len(final) == 1, f"expected one step-20 checkpoint, found {final}")
     with open(cfg_path) as f:
         cfg = json.load(f)
     cfg["path"]["resume_state"] = ckpts[0]
@@ -1028,7 +1056,7 @@ def run_train_slice(torch, workdir, device) -> dict:
     check(rel <= 1e-6, f"resumed losses differ from the first run's by {rel} (relative)")
     check(bool(vals) and all(math.isfinite(v) for v in vals.values()),
           f"validation metrics in Kelvin not finite: {vals}")
-    return {"launches": launches, "step": step}
+    return {"launches": launches, "step": step, "config": cfg_path, "checkpoint": final[0]}
 
 
 def _step_grads(torch, model, batch, sched, draws) -> tuple:
@@ -2229,10 +2257,307 @@ def stress_step(torch, device, repeats: int) -> None:
           f"a step broke the 1e-3 gradient bound: {totals['steps']}")
 
 
+SERVE_REQUESTS = (5, 3, 1, 4, 2, 6, 3)  # phase 13: 24 fields from concurrent clients
+SERVE_SEED = 11
+
+
+def _post_b64(url: str, lr, months) -> "np.ndarray":
+    import urllib.request
+
+    from srewd_tpu_torch.serving.http import _b64_decode, _b64_encode
+
+    body = json.dumps({"lr_b64": _b64_encode(lr), "months": [int(m) for m in months]}).encode()
+    req = urllib.request.Request(url + "/v1/super_resolve", data=body,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return _b64_decode(json.loads(r.read())["sr_b64"])
+
+
+def op_dispatch_us(torch, device, attn_shapes, gn_shapes) -> dict:
+    """Host µs of one call of K1's and K3's forward through the wrapper (the
+    eager route) and through the custom op (the exported program's route),
+    at the smallest main-path shapes in bf16, where a call's host time
+    exceeds its device time: 200 calls enqueued, then one synchronise."""
+    from srewd_tpu_torch.ops import flash_attention as fa
+    from srewd_tpu_torch.ops import fused_groupnorm as gn
+
+    g = torch.Generator(device=device).manual_seed(3)
+    kind, n, d = min(attn_shapes, key=lambda a: a[1] * a[2])
+    q, k, v = attention_inputs(torch, kind, BATCH, n, d, torch.bfloat16, device, g)
+    shape, groups, swish = min(gn_shapes, key=lambda s: math.prod(s[0]))
+    x = torch.randn(shape, device=device, generator=g).to(torch.bfloat16)
+    w = torch.ones(shape[-1], device=device, dtype=torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    calls = {
+        "k1_direct": lambda: fa.flash_attention(q, k, v, scale),
+        "k1_op": lambda: torch.ops.srewd.flash_attention(q, k, v, scale),
+        "k3_direct": lambda: gn.gn_swish(x, w, w, groups, 1e-5, swish),
+        "k3_op": lambda: torch.ops.srewd.gn_swish(x, w, w, groups, 1e-5, swish),
+    }
+    out = {}
+    for _ in range(2):  # the second round is kept: both routes warm, in turns
+        for name, fn in calls.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) / 200 * 1e6
+    out["shapes"] = {"k1": [kind, BATCH, n, d], "k3": [list(shape), groups, swish]}
+    return out
+
+
+def run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes) -> dict:
+    """Phase 13: the serving layer on phase 6's phydiff checkpoint (float32,
+    DPM-25, batch 8): SamplerService.from_checkpoint behind make_server on
+    localhost, 24 fields from 7 concurrent clients, each device batch held
+    against generate_sr of its packed batch and each field against its row;
+    the export_sampler entry point (K1 and K3 as custom-op nodes: per step
+    program as many as one eager UNet call launches); the artifact loaded in
+    a fresh process at batch 3 and 8 against generate_sr at the same seed;
+    then bench_serve at its full-width defaults. Launches: the service's,
+    the artifact's (in its process) and bench_serve's."""
+    import io
+    import threading
+    from collections import Counter
+
+    import numpy as np
+
+    from srewd_tpu_torch import bench_serve
+    from srewd_tpu_torch import export_sampler as export_cli
+    from srewd_tpu_torch.serving.http import make_server
+    from srewd_tpu_torch.serving.service import SamplerService, load_stack
+    from srewd_tpu_torch.utils.seeding import member_seed
+
+    t_phase = time.perf_counter()
+    _sample_defaults(torch)
+    cfg, ckpt = phase6["config"], phase6["checkpoint"]
+    dpm = {"sampler": "dpm", "ddim_steps": DPM_STEPS}
+    calls = per_arch["phydiff"]
+    total = Counter()
+
+    # the service over HTTP
+    t0 = time.perf_counter()
+    stack = load_stack(cfg, ckpt, diffusion_overrides=dpm, device=device)
+    stack_sec = time.perf_counter() - t0
+    lr_sc, hr_sc = stack.lr_scaler, stack.hr_scaler
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = [lr_sc.inverse(rng.standard_normal((n, *LR_HW, 1)).astype(np.float32),
+                          np.ones(n, np.int32)) for n in SERVE_REQUESTS]
+    t0 = time.perf_counter()
+    svc = SamplerService.from_checkpoint(cfg, ckpt, diffusion_overrides=dpm, device=device,
+                                         batch_size=BATCH, linger_ms=50.0, seed=SERVE_SEED)
+    service_sec = time.perf_counter() - t0
+    batches = []  # (normalized packed LR, seq, the service's raw output) per device batch
+    enqueue = svc._enqueue
+
+    def tapped(model, lr, seq):
+        host, event = enqueue(model, lr, seq)
+        batches.append((lr, seq, host, event))
+        return host, event
+
+    svc._enqueue = tapped
+    server = make_server(svc, port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    serve_thread.start()
+    results, errors = [None] * len(reqs), []
+
+    def client(i):
+        try:
+            results[i] = _post_b64(url, reqs[i], np.ones(len(reqs[i]), np.int32))
+        except Exception as e:  # reported below, after every client has ended
+            errors.append(repr(e))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        serve_sec = time.perf_counter() - t0
+        stats = svc.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        serve_thread.join(timeout=60)
+    served_launches, served_plain = read_counts()
+    total.update(served_launches)
+    check(not errors and all(r is not None for r in results), f"HTTP clients failed: {errors}")
+
+    # each device batch against generate_sr of its packed batch (not counted)
+    t0 = time.perf_counter()
+    model, schedule = stack.model, stack.schedule
+    batch_err, rows = [], {}
+    for lr, seq, host, event in batches:
+        event.synchronize()
+        gen = torch.Generator(device=device).manual_seed(member_seed(SERVE_SEED, seq))
+        direct = model.generate_sr({"LR": torch.from_numpy(lr).to(device)}, schedule,
+                                   generator=gen, **dpm).cpu()
+        batch_err.append({"seq": seq, "bit_identical": bool(torch.equal(host, direct)),
+                          "rel_rmse": rel_rmse(host, direct)})
+        for r in range(BATCH):
+            rows.setdefault(lr[r].tobytes(), direct[r].numpy())
+    field_err = 0.0
+    lo, hi = math.inf, -math.inf
+    for req, sr in zip(reqs, results):
+        months = np.ones(len(req), np.int32)
+        norm = lr_sc.transform(req, months)
+        want = hr_sc.inverse(np.stack([rows[f.tobytes()] for f in norm]), months)
+        field_err = max(field_err, float(np.abs(sr - want).max()))
+        lo, hi = min(lo, float(sr.min())), max(hi, float(sr.max()))
+    emit({"phase": "serve", "requests": list(SERVE_REQUESTS), "fields": sum(SERVE_REQUESTS),
+          "stats": stats, "sec": serve_sec, "fields_per_sec": sum(SERVE_REQUESTS) / serve_sec,
+          "stack_sec": stack_sec, "service_setup_sec": service_sec,
+          "direct_sec": time.perf_counter() - t0,
+          "device_batches": batch_err, "max_abs_kelvin_vs_direct": field_err,
+          "kelvin_min": lo, "kelvin_max": hi, "launches": served_launches,
+          "plain_calls": served_plain})
+    n_batches = stats["device_batches"]
+    check(stats["fields"] == sum(SERVE_REQUESTS) and len(batches) == n_batches >= 3,
+          f"serve stats {stats}, {len(batches)} batches tapped")
+    # bound: float32 sums in another order (the same kernels and cuDNN's
+    # heuristics on both sides make it exact in practice)
+    check(all(b["rel_rmse"] <= 1e-5 for b in batch_err),
+          f"a device batch differs from generate_sr of its packed batch: {batch_err}")
+    check(field_err <= 1e-3, f"a served field differs from its row by {field_err} K")
+    check(180.0 < lo and hi < 360.0,
+          f"served fields outside a plausible Kelvin range: [{lo}, {hi}]")
+    check(served_launches["flash_attention"] == n_batches * DPM_STEPS * calls["attention_calls"]
+          and served_launches["gn_swish"] == n_batches * DPM_STEPS * calls["gn_calls"]
+          and served_launches["flash_attention_backward"] == 0
+          and served_launches["gn_swish_backward"] == 0 and sum(served_plain.values()) == 0,
+          f"serve launches {served_launches} for {n_batches} batches, plain {served_plain}")
+
+    # the exported sampler: the entry point, then a fresh process that loads it,
+    # counts its custom-op nodes and runs it, while this one computes the
+    # eager references (its chains come after its ~20 s of imports and loading)
+    path = os.path.join(workdir, "phydiff_dpm25.srexport")
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        exported = export_cli.main(["-c", cfg, "-m", ckpt, "-o", path, "--sampler", "dpm",
+                                    "--ddim-steps", str(DPM_STEPS), "--device", str(device)])
+    export_launches, _ = read_counts()
+    check(out.getvalue().startswith("EXPORT OK "), f"export_sampler printed {out.getvalue()!r}")
+    check(sum(export_launches.values()) == 0, f"exporting launched kernels: {export_launches}")
+    lrs = {b: lr_sc.inverse(rng.standard_normal((b, *LR_HW, 1)).astype(np.float32),
+                            np.ones(b, np.int32)) for b in (3, 8)}
+    for b, lr in lrs.items():
+        np.save(os.path.join(workdir, f"serve_lr{b}.npy"), lr)
+    code = f"""
+import json, sys, time
+t_start = time.perf_counter()
+from collections import Counter
+import numpy as np
+sys.path.insert(0, {REPO!r})
+from srewd_tpu_torch.ops import flash_attention as fa, fused_groupnorm as gn
+from srewd_tpu_torch.serving.export import load_sampler
+t0 = time.perf_counter()
+fn = load_sampler({path!r})
+out = {{"load_sec": time.perf_counter() - t0, "launches": {{}}, "call_sec": {{}}}}
+out["graph_nodes"] = {{name: dict(Counter(str(n.target) for n in ep.graph.nodes
+                                          if str(n.target).startswith("srewd.")))
+                      for name, ep in (("condition", fn.exported.condition),
+                                       ("step", fn.exported.step))}}
+for b in (3, 8):
+    lr = np.load({workdir!r} + f"/serve_lr{{b}}.npy")
+    before = fa.flash_attention.launches, gn.gn_swish.launches
+    t0 = time.perf_counter()
+    sr = fn(lr, np.ones(b, np.int32), seed={SERVE_SEED}).cpu().numpy()
+    out["call_sec"][b] = time.perf_counter() - t0
+    np.save({workdir!r} + f"/serve_sr{{b}}.npy", sr)
+    out["launches"][b] = [fa.flash_attention.launches - before[0],
+                          gn.gn_swish.launches - before[1]]
+out["plain_calls"] = fa.attention_reference.calls + gn.gn_swish_reference.calls
+model_code = tuple("srewd_tpu_torch." + p for p in ("models", "configs", "diffusion", "training"))
+out["model_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "srewd_tpu")
+                              or m.startswith(model_code))
+out["process_sec"] = time.perf_counter() - t_start
+print(json.dumps(out))
+"""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO)
+    try:
+        wants = {}
+        for b, lr_k in lrs.items():  # the eager references (not counted)
+            months = np.ones(b, np.int32)
+            gen = torch.Generator(device=device).manual_seed(SERVE_SEED)
+            x = torch.from_numpy(lr_sc.transform(lr_k, months)).to(device)
+            sr = model.generate_sr({"LR": x}, schedule, generator=gen, **dpm)
+            wants[b] = (sr.cpu().numpy(), model.condition({"LR": x}).float().cpu().numpy())
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    load_sec = time.perf_counter() - t0
+    del model, stack
+    torch.cuda.empty_cache()
+    check(proc.returncode == 0, f"the artifact's process failed: {stderr[-3000:]}")
+    sub = json.loads(stdout.strip().splitlines()[-1])
+    nodes = sub["graph_nodes"]
+    emit({"phase": "export", "export_sec": exported["export_sec"], "mb": exported["mb"],
+          "header": {k: v for k, v in exported.items() if k not in ("noise_ids",)},
+          "graph_nodes": nodes, "launches_while_exporting": export_launches})
+    want_nodes = {"srewd.flash_attention.default": calls["attention_calls"],
+                  "srewd.gn_swish.default": calls["gn_calls"]}
+    check(nodes["step"] == want_nodes and not nodes["condition"],
+          f"the step program's custom-op nodes {nodes} are not one UNet call's "
+          f"{calls['attention_calls']} K1 and {calls['gn_calls']} K3 calls")
+    errs = {}
+    for b in (3, 8):
+        months = np.ones(b, np.int32)
+        got = hr_sc.transform(np.load(os.path.join(workdir, f"serve_sr{b}.npy")), months)
+        want, cond = wants[b]
+        errs[b] = rel_rmse(torch.from_numpy(got - cond), torch.from_numpy(want - cond))
+    per_call = [DPM_STEPS * calls["attention_calls"], DPM_STEPS * calls["gn_calls"]]
+    emit({"phase": "load_sampler", "sec": load_sec, "process_sec": sub["process_sec"],
+          "load_sampler_sec": sub["load_sec"], "call_sec": sub["call_sec"],
+          "rel_rmse_vs_generate_sr": errs, "launches": sub["launches"],
+          "plain_calls": sub["plain_calls"], "model_modules": sub["model_modules"]})
+    check(all(e <= 1e-4 for e in errs.values()),
+          f"the loaded artifact is off generate_sr by {errs} (relative RMSE, bound 1e-4)")
+    check(all(v == per_call for v in sub["launches"].values()) and sub["plain_calls"] == 0,
+          f"the artifact's launches {sub['launches']} are not {per_call} per call, "
+          f"or the plain versions ran ({sub['plain_calls']})")
+    check(not sub["model_modules"], f"loading the artifact imported {sub['model_modules']}")
+    total["flash_attention"] += sum(v[0] for v in sub["launches"].values())
+    total["gn_swish"] += sum(v[1] for v in sub["launches"].values())
+
+    dispatch = op_dispatch_us(torch, device, attn_shapes, gn_shapes)
+    emit({"phase": "op_dispatch", "host_us_per_call": dispatch,
+          "extra_ms_per_phydiff_unet_call_via_ops": (
+              calls["attention_calls"] * (dispatch["k1_op"] - dispatch["k1_direct"])
+              + calls["gn_calls"] * (dispatch["k3_op"] - dispatch["k3_direct"])) / 1e3})
+
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        res = bench_serve.main([])
+    launches, plain = read_counts()
+    total.update(launches)
+    say(out.getvalue().strip())
+    emit({"phase": "bench_serve", "result": res, "launches": launches, "plain_calls": plain,
+          "phase_sec": time.perf_counter() - t_phase})
+    check(out.getvalue().strip() == json.dumps(res), f"bench_serve printed {out.getvalue()!r}")
+    check(res["value"] > 0 and res["fields"] == 108, f"bench_serve: {res}")
+    check(launches["flash_attention"] > 0 and launches["gn_swish"] > 0
+          and launches["flash_attention_backward"] == launches["gn_swish_backward"] == 0
+          and sum(plain.values()) == 0, f"bench_serve: {launches} {plain}")
+    return dict(total)
+
+
 def kernel_entry(name, route, source, replaces, tot, launches_by_phase) -> dict:
     """The kernels line's entry: `launches` sums the main-path runs (phases
-    4, 6, 8, 9, 11 and 12, each counted from 0), `launches_by_phase` splits
-    them."""
+    4, 6, 8, 9, 11, 12 and 13, each counted from 0), `launches_by_phase`
+    splits them."""
     entry = {"name": name, "route": route, "source": source, "replaces": replaces,
              "launches": sum(launches_by_phase.values()),
              "launches_by_phase": launches_by_phase, "max_abs_err": tot["f32_err"],
@@ -2294,10 +2619,10 @@ def report_cuda_kernels() -> None:
 def main(argv: list) -> int:
     stress = argv[1] if len(argv) == 2 and argv[0] == "--stress" else None
     bf16_steps = argv[1] if len(argv) == 2 and argv[0] == "--bf16-step" else None
-    if argv not in ([], ["--profile"], ["--train-kernels"]) and not (
+    if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"]) and not (
             (stress or bf16_steps or "").isdigit()):
         print(f"chip_smoke: unknown arguments {argv}; the options are --profile, "
-              "--train-kernels, --stress N and --bf16-step N", file=sys.stderr)
+              "--train-kernels, --serve, --stress N and --bf16-step N", file=sys.stderr)
         return 2
     import torch
 
@@ -2361,6 +2686,12 @@ def main(argv: list) -> int:
             profile_train_steps(torch, workdir, device)
         say(smi)
         return 0
+    if argv == ["--serve"]:
+        with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
+            phase6 = run_train_slice(torch, workdir, device)
+            run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes)
+        say(smi)
+        return 0
     kernels = {**compare_attention(torch, attn_shapes, device),
                **compare_gn(torch, gn_shapes, device)}
     torch.cuda.empty_cache()
@@ -2383,10 +2714,12 @@ def main(argv: list) -> int:
         launches_bf16 = run_bf16_training(torch, workdir, device, per_arch, pre["checkpoints"],
                                           f32_speed)
         launches_bench = run_bench_twins(torch, workdir, device)
+        launches_serve = run_serving(torch, workdir, device, phase6, per_arch, attn_shapes,
+                                     gn_shapes)
 
     by_phase = {"sample_phydiff": launches_sample, "train_phydiff": phase6["launches"],
                 "pretrain": pre["launches"], "archs": launches_archs,
-                "train_bf16": launches_bf16, "bench": launches_bench}
+                "train_bf16": launches_bf16, "bench": launches_bench, "serve": launches_serve}
 
     def entry(name, source, replaces):
         return kernel_entry(name, "cuda", source, replaces, kernels[name],

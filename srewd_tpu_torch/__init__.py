@@ -15,8 +15,10 @@ Conventions:
     utils.{logging,seeding}) are the port's own copies: it imports nothing
     of `srewd_tpu`.
 
-Entry points: `python -m srewd_tpu_torch.{sample,train,pretrain}`, and
-the benchmarks `python -m srewd_tpu_torch.{bench,bench_train,bench_all}`.
+Entry points: `python -m srewd_tpu_torch.{sample,train,pretrain}`, the
+serving layer's `python -m srewd_tpu_torch.{serve,export_sampler}`
+(serving/), and the benchmarks `python -m
+srewd_tpu_torch.{bench,bench_train,bench_all,bench_serve}`.
 The compute dtype (`build_model(dtype=)`, `cli.build_trainer(dtype=)`)
 casts float32 weights per call (models/layers.py), as flax's `dtype`.
 
@@ -24,7 +26,8 @@ Hand-written kernels (CUDA C++, sm_90a, built by ops/_build.py):
   ops/flash_attention.py + csrc/flash_attention.cu, csrc/flash_attention_bwd.cu
   ops/fused_groupnorm.py + csrc/gn_swish.cu (forward and backward)
 Each has a plain PyTorch version beside it, used for CPU tensors and for
-the comparisons in chip_smoke.py.
+the comparisons in chip_smoke.py. K1's and K3's forwards are also
+`torch.library` custom ops, which torch.export records (ops/__init__.py).
 """
 
 __version__ = "0.1.0"

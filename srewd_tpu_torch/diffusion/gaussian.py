@@ -7,8 +7,17 @@ gamma ~ U(sqrt_acp_prev[t-1], sqrt_acp_prev[t]) per sample
 eps (`q_sample`). The draws stay on the device: t is a one-element tensor,
 so nothing waits on the host.
 
-The JAX `lax.scan` becomes a Python loop over tensors on the device; the
-schedule constants are indexed there, so the loop never waits on the host.
+The JAX `lax.scan`s of the three samplers (DDPM, DDIM, DPM-Solver++)
+become one Python loop over tensors on the device (`run_chain`). A
+sampler is a `ChainPlan` (`chain_plan`), its per-step constants as one
+table on the device in execution order, and one step function,
+`chain_step`: a pure tensor function of (the table, the step index as a
+tensor, x, the denoiser, the step's noise, the previous x0). The eager
+loop and the exported step program (serving/export.py) both call it, so
+the two cannot drift apart. Where the JAX chains branch on the step (DDPM's and DDIM's
+last step draw no noise), the table holds a gate that selects; where they
+start differently (DPM-Solver++'s first step is first order), its
+multistep weight is 0 there.
 
 Noise is an input. A chain draws its initial image and per-step noises from
 `generator` (a `torch.Generator` on the device), unless the caller hands
@@ -25,6 +34,7 @@ S mod k steps make no frame, as the JAX chains' segmented scans.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -74,44 +84,10 @@ def draw_time_and_gamma(
     return t, gamma
 
 
-def predict_start_from_noise(schedule: Schedule, x_t, t, eps):
-    return (
-        schedule.sqrt_recip_alphas_cumprod[t] * x_t
-        - schedule.sqrt_recipm1_alphas_cumprod[t] * eps
-    )
-
-
-def q_posterior(schedule: Schedule, x_start, x_t, t):
-    mean = schedule.posterior_mean_coef1[t] * x_start + schedule.posterior_mean_coef2[t] * x_t
-    return mean, schedule.posterior_log_variance_clipped[t]
-
-
 def _draw(shape, generator, device, noises, i):
     if noises is not None:
         return noises[i].to(device=device, dtype=torch.float32)
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-
-
-def p_sample_step(
-    schedule: Schedule,
-    denoise_fn: DenoiseFn,
-    img: torch.Tensor,
-    t: int,
-    noise: Optional[torch.Tensor],
-    clip_denoised: bool = True,
-) -> torch.Tensor:
-    """One reverse step x_t -> x_{t-1}. `noise` is unused at t == 0."""
-    b = img.shape[0]
-    # the denoiser sees the continuous level sqrt(acp_prev)[t + 1]
-    noise_level = schedule.sqrt_alphas_cumprod_prev[t + 1].expand(b)
-    eps = denoise_fn(img, noise_level).float()
-    x_recon = predict_start_from_noise(schedule, img, t, eps)
-    if clip_denoised:
-        x_recon = x_recon.clamp(-1.0, 1.0)
-    mean, log_var = q_posterior(schedule, x_recon, img, t)
-    if t == 0:  # noise gated off at the last step
-        return mean
-    return mean + noise * torch.exp(0.5 * log_var)
 
 
 def _frames(img: torch.Tensor, frames: list, step: int, n_steps: int,
@@ -129,8 +105,115 @@ def _result(img: torch.Tensor, frames: list, keep_every: Optional[int]):
     return img, (torch.stack(frames) if frames else img.new_zeros((0, *img.shape)))
 
 
-def sample_chain(
-    schedule: Schedule,
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """One reverse chain's constants.
+
+    kind: "ddpm", "ddim" or "dpm" (which update `chain_step` applies).
+    coef: float32 [rows, n_steps] on the device, column s the constants of
+      the s-th step taken; row 0 is the denoiser's noise level.
+    noise_ids: per step, the index into `noises` of its noise (t for DDPM,
+      the sub-sequence index for DDIM), or None where it draws none; a
+      generator draws them in step order, after the initial image.
+    """
+
+    kind: str
+    coef: torch.Tensor
+    noise_ids: tuple
+
+    @property
+    def n_steps(self) -> int:
+        return len(self.noise_ids)
+
+
+def chain_plan(schedule: Schedule, sampler: str = "ddpm", *, steps: int = 50, eta: float = 0.0,
+               tau_spacing: str = "linspace", device=None) -> ChainPlan:
+    """The ChainPlan of `sampler`: "ddpm" (the full T-step chain), "ddim"
+    (arXiv:2010.02502, `steps` of `tau_spacing`, stochasticity `eta`) or
+    "dpm" (DPM-Solver++(2M), arXiv:2211.01095: the deterministic
+    second-order multistep sampler in the x0 parameterization over DDIM's
+    sub-sequence; the first and last steps first order, the others
+    extrapolating D = (1 + c) x0_i - c x0_{i-1}). The DDPM and DDIM tables
+    are gathered from the schedule on its device; DPM-Solver++'s are
+    computed in float64 on the host, as the JAX chain computes them."""
+    device = schedule.betas.device if device is None else torch.device(device)
+    if sampler == "ddpm":
+        n = schedule.num_timesteps
+        t = torch.arange(n - 1, -1, -1, device=device)
+        coef = torch.stack([
+            schedule.sqrt_alphas_cumprod_prev[t + 1],  # the level sqrt(acp_prev)[t + 1]
+            schedule.sqrt_recip_alphas_cumprod[t], schedule.sqrt_recipm1_alphas_cumprod[t],
+            schedule.posterior_mean_coef1[t], schedule.posterior_mean_coef2[t],
+            schedule.posterior_log_variance_clipped[t], (t > 0).float(),  # no noise at t = 0
+        ])
+        return ChainPlan("ddpm", coef,
+                         tuple(ti if ti > 0 else None for ti in range(n - 1, -1, -1)))
+    if sampler == "ddim":
+        taus = torch.as_tensor(select_taus(schedule, steps, tau_spacing), device=device)
+        n = len(taus)
+        a_t = schedule.alphas_cumprod[taus]
+        a_prev = torch.cat([a_t.new_ones(1), schedule.alphas_cumprod[taus[:-1]]])
+        sigma = (eta * torch.sqrt((1.0 - a_prev) / (1.0 - a_t))
+                 * torch.sqrt(torch.clamp(1.0 - a_t / a_prev, min=0.0)))
+        noisy = [i > 0 and eta != 0.0 for i in range(n)]
+        coef = torch.stack([
+            schedule.sqrt_alphas_cumprod_prev[taus + 1],  # sqrt(acp[tau])
+            torch.sqrt(1.0 - a_t), torch.sqrt(a_t), torch.sqrt(a_prev),
+            torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)), sigma,
+            torch.tensor(noisy, dtype=torch.float32).to(device),
+        ]).flip(1)  # execution order: descending tau
+        return ChainPlan("ddim", coef,
+                         tuple(i if noisy[i] else None for i in range(n - 1, -1, -1)))
+    if sampler == "dpm":
+        coef = torch.from_numpy(_dpm_solver_coefficients(schedule, steps, tau_spacing)).to(device)
+        return ChainPlan("dpm", coef, (None,) * coef.shape[1])
+    raise ValueError(f"unknown sampler {sampler!r} (ddpm, ddim, dpm)")
+
+
+def _noise_level(coef: torch.Tensor, i: torch.Tensor, batch: int) -> torch.Tensor:
+    """The denoiser's noise level [batch] at step `i` (an integer tensor)."""
+    return coef[0].index_select(0, i.reshape(1)).expand(batch)
+
+
+def chain_step(kind: str, coef: torch.Tensor, i: torch.Tensor, x: torch.Tensor,
+               denoise_fn: DenoiseFn, noise: torch.Tensor, prev_x0: torch.Tensor,
+               clip_denoised: bool = True) -> tuple:
+    """One reverse step of a ChainPlan's sampler: (x_next, x0).
+
+    `i` is the step's column of `coef` as an integer tensor; `noise` the
+    step's noise (read only where the plan's gate is on); `prev_x0` the x0
+    of the previous step (read by DPM-Solver++ only; zeros at the first).
+    """
+    eps = denoise_fn(x, _noise_level(coef, i, x.shape[0])).float()
+    c = coef.index_select(1, i.reshape(1)).squeeze(1).unbind(0)
+    if kind == "ddpm":
+        _, recip, recipm1, coef1, coef2, log_var, gate = c
+        x0 = recip * x - recipm1 * eps
+        if clip_denoised:
+            x0 = x0.clamp(-1.0, 1.0)
+        mean = coef1 * x0 + coef2 * x
+        return torch.where(gate > 0, mean + noise * torch.exp(0.5 * log_var), mean), x0
+    if kind == "ddim":
+        _, sqrt_1m_at, sqrt_at, sqrt_ap, dir_coef, sigma, gate = c
+        x0 = (x - sqrt_1m_at * eps) / sqrt_at
+        if clip_denoised:
+            x0 = x0.clamp(-1.0, 1.0)
+            # implied eps after clipping keeps the update self-consistent
+            eps = (x - sqrt_at * x0) / sqrt_1m_at
+        img = sqrt_ap * x0 + dir_coef * eps
+        return torch.where(gate > 0, img + sigma * noise, img), x0
+    if kind == "dpm":
+        _, sig_ratio, alpha_t, em1, w, sqrt_as, sig_s = c
+        x0 = (x - sig_s * eps) / sqrt_as
+        if clip_denoised:
+            x0 = x0.clamp(-1.0, 1.0)
+        d = (1.0 + w) * x0 - w * prev_x0
+        return sig_ratio * x - alpha_t * em1 * d, x0
+    raise ValueError(f"unknown chain kind {kind!r}")
+
+
+def run_chain(
+    plan: ChainPlan,
     denoise_fn: DenoiseFn,
     shape: tuple,
     *,
@@ -141,15 +224,18 @@ def sample_chain(
     clip_denoised: bool = True,
     keep_every: Optional[int] = None,
 ):
-    """Full T-step DDPM reverse chain from pure noise."""
+    """Walk `plan` from `init` (or a draw) with `chain_step`."""
     img = init.to(device=device, dtype=torch.float32) if init is not None else _draw(
         shape, generator, device, None, 0)
-    n_steps = schedule.num_timesteps
+    zero = torch.zeros_like(img)
+    prev_x0 = zero
+    steps = torch.arange(plan.n_steps, device=device)
     frames: list = []
-    for step, t in enumerate(range(n_steps - 1, -1, -1)):
-        noise = _draw(shape, generator, device, noises, t) if t > 0 else None
-        img = p_sample_step(schedule, denoise_fn, img, t, noise, clip_denoised)
-        _frames(img, frames, step, n_steps, keep_every)
+    for s, nid in enumerate(plan.noise_ids):
+        noise = zero if nid is None else _draw(shape, generator, device, noises, nid)
+        img, prev_x0 = chain_step(plan.kind, plan.coef, steps[s], img, denoise_fn, noise,
+                                  prev_x0, clip_denoised)
+        _frames(img, frames, s, plan.n_steps, keep_every)
     return _result(img, frames, keep_every)
 
 
@@ -181,58 +267,11 @@ def select_taus(schedule: Schedule, steps: int, spacing: str = "linspace") -> np
     return np.unique(taus.astype(np.int64))
 
 
-def ddim_sample_chain(
-    schedule: Schedule,
-    denoise_fn: DenoiseFn,
-    shape: tuple,
-    *,
-    device: torch.device | str,
-    steps: int = 50,
-    eta: float = 0.0,
-    clip_denoised: bool = True,
-    tau_spacing: str = "linspace",
-    generator: Optional[torch.Generator] = None,
-    init: Optional[torch.Tensor] = None,
-    noises: Optional[Sequence[torch.Tensor]] = None,
-    keep_every: Optional[int] = None,
-):
-    """DDIM (arXiv:2010.02502) over a `steps`-long timestep sub-sequence."""
-    taus = torch.as_tensor(select_taus(schedule, steps, tau_spacing), device=device)
-    a_t = schedule.alphas_cumprod[taus]
-    a_prev = torch.cat([a_t.new_ones(1), schedule.alphas_cumprod[taus[:-1]]])
-    lvl_t = schedule.sqrt_alphas_cumprod_prev[taus + 1]  # sqrt(acp[tau])
-
-    img = init.to(device=device, dtype=torch.float32) if init is not None else _draw(
-        shape, generator, device, None, 0)
-    b = shape[0]
-    n_steps = len(taus)
-    frames: list = []
-    for step, i in enumerate(range(n_steps - 1, -1, -1)):
-        at, ap = a_t[i], a_prev[i]
-        eps = denoise_fn(img, lvl_t[i].expand(b)).float()
-        x0 = (img - torch.sqrt(1.0 - at) * eps) / torch.sqrt(at)
-        if clip_denoised:
-            x0 = x0.clamp(-1.0, 1.0)
-            # implied eps after clipping keeps the update self-consistent
-            eps = (img - torch.sqrt(at) * x0) / torch.sqrt(1.0 - at)
-        sigma = (
-            eta
-            * torch.sqrt((1.0 - ap) / (1.0 - at))
-            * torch.sqrt(torch.clamp(1.0 - at / ap, min=0.0))
-        )
-        dir_xt = torch.sqrt(torch.clamp(1.0 - ap - sigma**2, min=0.0)) * eps
-        img = torch.sqrt(ap) * x0 + dir_xt
-        if i > 0 and eta != 0.0:  # noise gated off at the last step
-            img = img + sigma * _draw(shape, generator, device, noises, i)
-        _frames(img, frames, step, n_steps, keep_every)
-    return _result(img, frames, keep_every)
-
-
 def _dpm_solver_coefficients(schedule: Schedule, steps: int, tau_spacing: str = "linspace"):
     """Per-step constants of DPM-Solver++(2M) in execution order (descending
     tau), float64 numpy from the float32 alphas_cumprod, as the JAX chain
-    computes them: sigma_t / sigma_s, alpha_t, e^{-h} - 1, the multistep
-    weight c, sqrt(acp_s), sigma_s and the noise level sqrt_acp_prev[tau+1].
+    computes them: the noise level sqrt_acp_prev[tau+1], sigma_t / sigma_s,
+    alpha_t, e^{-h} - 1, the multistep weight c, sqrt(acp_s) and sigma_s.
 
     e^{-h} = (alpha_s sigma_t) / (sigma_s alpha_t) in closed form, so the
     final step to acp = 1 (sigma_t = 0) needs no infinite lambda; c[0] = 0
@@ -253,42 +292,4 @@ def _dpm_solver_coefficients(schedule: Schedule, steps: int, tau_spacing: str = 
     if len(h) > 2:
         c[1:-1] = h[1:-1] / (2.0 * h[:-2])
     lvl = schedule.sqrt_alphas_cumprod_prev.double().cpu().numpy()[taus[::-1] + 1]
-    return np.stack([sg_t / sg_s, al_t, em1, c, np.sqrt(a_src), sg_s, lvl]).astype(np.float32)
-
-
-def dpm_solver_chain(
-    schedule: Schedule,
-    denoise_fn: DenoiseFn,
-    shape: tuple,
-    *,
-    device: torch.device | str,
-    steps: int = 25,
-    clip_denoised: bool = True,
-    tau_spacing: str = "linspace",
-    generator: Optional[torch.Generator] = None,
-    init: Optional[torch.Tensor] = None,
-    keep_every: Optional[int] = None,
-):
-    """DPM-Solver++(2M) (arXiv:2211.01095): the deterministic second-order
-    multistep sampler in the x0 parameterization, over DDIM's timestep
-    sub-sequence and noise levels; one denoiser call per step. The first
-    and the last step are first order (the DDIM eta=0 update); the others
-    extrapolate D = (1 + c) x0_i - c x0_{i-1}."""
-    coef = torch.from_numpy(_dpm_solver_coefficients(schedule, steps, tau_spacing)).to(device)
-    img = init.to(device=device, dtype=torch.float32) if init is not None else _draw(
-        shape, generator, device, None, 0)
-    prev_x0 = torch.zeros_like(img)
-    b = shape[0]
-    n_steps = coef.shape[1]
-    frames: list = []
-    for step in range(n_steps):
-        sig_ratio, alpha_t, em1, c, sqrt_as, sig_s, lvl = coef[:, step]
-        eps = denoise_fn(img, lvl.expand(b)).float()
-        x0 = (img - sig_s * eps) / sqrt_as
-        if clip_denoised:
-            x0 = x0.clamp(-1.0, 1.0)
-        d = (1.0 + c) * x0 - c * prev_x0
-        img = sig_ratio * img - alpha_t * em1 * d
-        prev_x0 = x0
-        _frames(img, frames, step, n_steps, keep_every)
-    return _result(img, frames, keep_every)
+    return np.stack([lvl, sg_t / sg_s, al_t, em1, c, np.sqrt(a_src), sg_s]).astype(np.float32)

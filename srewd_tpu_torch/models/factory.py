@@ -42,11 +42,11 @@ import torch
 import torch.nn as nn
 
 from ..diffusion.gaussian import (
-    ddim_sample_chain,
-    dpm_solver_chain,
+    ChainPlan,
+    chain_plan,
     draw_time_and_gamma,
     q_sample,
-    sample_chain,
+    run_chain,
 )
 from ..diffusion.schedule import Schedule
 from ..ops.finite_diff import fd_stencils
@@ -87,6 +87,35 @@ class DiffusionModel:
             self.encoder.to(device)
         self._shadow = None
         return self
+
+    def params(self) -> dict:
+        """The weights as {"unet": state_dict, "encoder": state_dict}
+        ("encoder" only where there is one), as the JAX param tree holds
+        them; what the serving layer takes."""
+        out = {"unet": self.unet.state_dict()}
+        if self.encoder is not None:
+            out["encoder"] = self.encoder.state_dict()
+        return out
+
+    @torch.no_grad()
+    def with_params(self, params: dict, device) -> "DiffusionModel":
+        """A new DiffusionModel of this one's structure on `device`, in eval
+        mode without gradients, holding a copy of `params` (`params()`'s
+        form): the serving layer's snapshot. On a card the copies are done
+        when it returns, so another stream may read them at once."""
+        device = torch.device(device)
+        snap = dataclasses.replace(
+            self, unet=copy.deepcopy(self.unet).to(device),
+            encoder=None if self.encoder is None else copy.deepcopy(self.encoder).to(device))
+        snap.unet.load_state_dict(params["unet"], strict=True)
+        if snap.encoder is not None:
+            snap.encoder.load_state_dict(params["encoder"], strict=True)
+        for m in (snap.unet, snap.encoder):
+            if m is not None:
+                m.requires_grad_(False).eval()
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        return snap
 
     @torch.no_grad()
     def _chain_unet(self) -> WeatherUNet:
@@ -179,27 +208,46 @@ class DiffusionModel:
         return loss
 
     @torch.no_grad()
+    def chain_conditioning(self, batch: dict, unet: WeatherUNet) -> tuple:
+        """(condition, consts): the condition image, float32, and the UNet's
+        chain-constant keyword inputs (RRDB taps, DWT pyramid, stencil maps,
+        the spliter's frequency maps) for `unet`, the chain's UNet
+        (`_chain_unet`). Computed once per chain; the exported conditioning
+        program is this function."""
+        cond = self.condition(batch).float()
+        consts = {}
+        if self.arch in _RRDB_ARCHS:
+            _, consts["rrdb_feats"] = self.encode_rrdb(batch["LR"])
+        consts.update(self._conditioning(cond))
+        if hasattr(unet, "fd_spliter"):
+            consts["cond_feats"] = unet(cond, cond_features_only=True)
+        return cond, consts
+
+    def chain_eps(self, unet: WeatherUNet, cond: torch.Tensor, consts: dict,
+                  x_t: torch.Tensor, noise_level: torch.Tensor) -> torch.Tensor:
+        """One UNet call of a reverse chain: eps for (x_t, noise_level)."""
+        return unet(self._x_in(cond, x_t), noise_level, **consts)
+
+    @torch.no_grad()
     def denoiser(self, batch: dict) -> tuple:
         """(condition, denoise_fn(x_t, noise_level) -> eps) of a reverse chain.
 
-        The chain-constant conditioning (RRDB taps, DWT pyramid, the
-        spliter's frequency maps, stencil maps) is computed here, once, and
-        so is the cast of the UNet's weights to its compute dtype
-        (`_chain_unet`).
+        The chain-constant conditioning (`chain_conditioning`) is computed
+        here, once, and so is the cast of the UNet's weights to its compute
+        dtype (`_chain_unet`).
         """
-        cond = self.condition(batch).float()
-        kwargs = {}
-        if self.arch in _RRDB_ARCHS:
-            _, kwargs["rrdb_feats"] = self.encode_rrdb(batch["LR"])
         unet = self._chain_unet()
-        kwargs.update(self._conditioning(cond))
-        if hasattr(unet, "fd_spliter"):
-            kwargs["cond_feats"] = unet(cond, cond_features_only=True)
+        cond, consts = self.chain_conditioning(batch, unet)
 
         def denoise_fn(x_t, noise_level):
-            return unet(self._x_in(cond, x_t), noise_level, **kwargs)
+            return self.chain_eps(unet, cond, consts, x_t, noise_level)
 
         return cond, denoise_fn
+
+    def add_back(self, img: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """The field from the chain's output: the residual archs add the
+        condition back."""
+        return img if self.arch == "sr3" else img + cond
 
     @torch.no_grad()
     def generate_sr(
@@ -216,11 +264,14 @@ class DiffusionModel:
         tau_spacing: str = "linspace",
         init: Optional[torch.Tensor] = None,
         noises: Optional[Sequence[torch.Tensor]] = None,
+        plan: Optional[ChainPlan] = None,
     ):
         """Super-resolve an NHWC batch by the full reverse chain.
 
         sampler: "ddpm", "ddim" (`ddim_steps`, `ddim_eta`) or "dpm"
-        (DPM-Solver++(2M), `ddim_steps` steps, deterministic). The
+        (DPM-Solver++(2M), `ddim_steps` steps, deterministic); `plan`, a
+        `chain_plan` of them made beforehand, replaces the four (a service
+        makes it once: it reads the schedule on the host). The
         conditioning is computed once, outside the step loop (`denoiser`).
         Noise comes from `generator`, or from `init` / `noises` (see
         diffusion/gaussian.py). keep_every:
@@ -228,24 +279,16 @@ class DiffusionModel:
         back, as [S // keep_every, B, H, W, C].
         """
         cond, denoise_fn = self.denoiser(batch)
-        common = dict(device=cond.device, generator=generator, init=init,
-                      clip_denoised=clip_denoised, keep_every=keep_every)
-        shape = tuple(cond.shape)
-        if sampler == "ddim":
-            out = ddim_sample_chain(schedule, denoise_fn, shape, steps=ddim_steps, eta=ddim_eta,
-                                    tau_spacing=tau_spacing, noises=noises, **common)
-        elif sampler == "dpm":
-            out = dpm_solver_chain(schedule, denoise_fn, shape, steps=ddim_steps,
-                                   tau_spacing=tau_spacing, **common)
-        elif sampler == "ddpm":
-            out = sample_chain(schedule, denoise_fn, shape, noises=noises, **common)
-        else:
-            raise ValueError(f"unknown sampler {sampler!r} (ddpm, ddim, dpm)")
+        if plan is None:
+            plan = chain_plan(schedule, sampler, steps=ddim_steps, eta=ddim_eta,
+                              tau_spacing=tau_spacing, device=cond.device)
+        out = run_chain(plan, denoise_fn, tuple(cond.shape), device=cond.device,
+                        generator=generator, init=init, noises=noises,
+                        clip_denoised=clip_denoised, keep_every=keep_every)
         img, frames = out if keep_every is not None else (out, None)
-        if self.arch != "sr3":
-            img = img + cond
-            if frames is not None:
-                frames = frames + cond[None]
+        img = self.add_back(img, cond)
+        if frames is not None:
+            frames = self.add_back(frames, cond[None])
         return img if frames is None else (img, frames)
 
     @torch.no_grad()
@@ -266,9 +309,9 @@ class DiffusionModel:
             raise ValueError("unconditional sample() requires conditional=False")
         u = self._chain_unet()
         shape = (batch_size, u.image_height, u.image_width, u.image_channels)
-        return sample_chain(schedule, lambda x_t, lvl: u(x_t, lvl), shape, device=device,
-                            generator=generator, init=init, noises=noises,
-                            clip_denoised=clip_denoised)
+        return run_chain(chain_plan(schedule, "ddpm", device=device), lambda x_t, lvl: u(x_t, lvl),
+                         shape, device=device, generator=generator, init=init, noises=noises,
+                         clip_denoised=clip_denoised)
 
 
 def build_model(model_cfg: dict, dtype: Optional[torch.dtype] = None) -> DiffusionModel:

@@ -6,6 +6,15 @@ CPU, or inside `reference_ops()`; for a CUDA tensor it launches the kernel
 or raises. `reference_ops()` exists for the whole-slice comparison of the
 kernels against their plain versions (chip_smoke.py) and is never the
 default.
+
+The forwards of K1 and K3 are also `torch.library` custom ops,
+`srewd::flash_attention` and `srewd::gn_swish`, each with a fake that runs
+the CUDA route's shape, dtype and layout checks. While torch.export traces
+a call (`use_op`), the wrapper calls its op, so the exported graph holds
+the kernel as one node: its CUDA implementation is the wrapper's own
+launch, counted like every launch, and its CPU implementation the plain
+version. Eager calls keep the direct route (plain version or ctypes
+launch), which adds no dispatcher time on the host.
 """
 
 from __future__ import annotations
@@ -26,6 +35,14 @@ def reference_ops():
         yield
     finally:
         _FORCE_PLAIN.reset(token)
+
+
+def use_op(x: torch.Tensor) -> bool:
+    """True when a kernel wrapper must call its custom op for `x`: while
+    torch.export (or torch.compile) traces the call, outside
+    `reference_ops()`, on the CPU or a card."""
+    tracing = torch.compiler.is_exporting() or torch.compiler.is_compiling()
+    return tracing and not _FORCE_PLAIN.get() and x.device.type in ("cpu", "cuda")
 
 
 def use_plain(x: torch.Tensor) -> bool:

@@ -18,7 +18,11 @@ views back into the convolutions' output slabs.
 `flash_attention_trainable` is what the model calls: with grad enabled it
 goes through `FlashAttentionFn` (K1 saving the row log-sum-exp, then K2 in
 the backward), as the JAX package's `flash_attention_trainable` carries its
-custom VJP; otherwise it is the bare forward. Whether the plain versions
+custom VJP; otherwise it is the bare forward. While torch.export traces the
+bare forward it calls the custom op `srewd::flash_attention` instead (see
+ops/__init__.py): its CUDA implementation is the launch below, its CPU one
+`attention_reference`, and its fake runs `_check_qkv`, so a shape K1 does
+not take fails when a program is exported, not when it is served. Whether the plain versions
 run is decided in the forward (a CPU tensor, or inside `reference_ops()`)
 and kept for the backward, which autograd may run on another thread.
 """
@@ -29,7 +33,7 @@ import ctypes
 
 import torch
 
-from . import _build, use_plain
+from . import _build, use_op, use_plain
 
 SUPPORTED_D = (64, 128, 256, 512)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,7 +121,10 @@ def _bwd_library():
     return _bwd_lib
 
 
-def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               pointers: bool = True) -> None:
+    """What K1 and K2 take. The custom op's fake runs it with `pointers`
+    False: a fake tensor has shapes, dtypes and strides but no data."""
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"{name} expects equal [B,N,D] shapes, got "
@@ -134,15 +141,16 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     for tname, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(2) != 1:
             raise ValueError(f"{tname} needs unit stride along D")
-        _check_aligned(name, tname, t)
+        _check_aligned(name, tname, t, pointers)
 
 
-def _check_aligned(name: str, tname: str, t: torch.Tensor) -> None:
+def _check_aligned(name: str, tname: str, t: torch.Tensor, pointer: bool = True) -> None:
     """The kernels copy rows into shared memory 16 bytes at a time
-    (cp.async): the data pointer and the batch and row strides, in bytes,
-    must be multiples of 16. No copy is made for a tensor that is not."""
+    (cp.async): the data pointer (unless `pointer` is False) and the batch
+    and row strides, in bytes, must be multiples of 16. No copy is made for
+    a tensor that is not."""
     isz = t.element_size()
-    if t.data_ptr() % 16:
+    if pointer and t.data_ptr() % 16:
         raise ValueError(f"{name}: {tname}'s data pointer is not 16-byte aligned "
                          f"(storage offset {t.storage_offset()} elements)")
     for dim in (0, 1):
@@ -161,10 +169,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     of the scaled scores, [B,N], and o32 O in float32 before its rounding
     (o itself for float32 inputs): what the backward, K2, takes.
     """
+    if use_op(q) and not return_lse:
+        return torch.ops.srewd.flash_attention(q, k, v, float(scale))
     if use_plain(q):
         if return_lse:
             raise ValueError("the row log-sum-exp is an output of the CUDA kernel only")
         return attention_reference(q, k, v, scale)
+    return _launch_forward(q, k, v, scale, return_lse)
+
+
+def _launch_forward(q, k, v, scale, return_lse=False):
+    """K1's launch on the current stream (the wrapper's CUDA route and the
+    custom op's CUDA implementation); counts `flash_attention.launches`."""
     _check_qkv("flash_attention", q, k, v)
     b, n, d = q.shape
     lib = _library()
@@ -191,6 +207,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("srewd::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """K1's forward as a graph node of an exported program."""
+    return _launch_forward(q, k, v, scale)
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _(q, k, v, scale):
+    return attention_reference(q, k, v, scale)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, scale):
+    if q.device.type == "cuda":
+        _check_qkv("flash_attention", q, k, v, pointers=False)
+    elif q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention expects equal [B,N,D] shapes, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    return q.new_empty(q.shape)
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -22,6 +22,11 @@ block and threads; the wrappers and the CPU tests both use it.
 
 `GNSwishFn` is what the model trains through: its forward launches the
 kernel and keeps the statistics, its backward launches the backward kernel.
+While torch.export traces the bare forward, `gn_swish` calls the custom op
+`srewd::gn_swish` instead (see ops/__init__.py): its CUDA implementation is
+the forward's launch, its CPU one `gn_swish_reference`, and its fake runs
+`_check` and asks `gn_plan` whether a plan exists, so a shape the kernel
+does not take fails when a program is exported, not when it is served.
 Whether the plain versions run is decided in the forward (a CPU tensor, or
 inside `reference_ops()`) and kept for the backward, which autograd may run
 on another thread.
@@ -36,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, use_plain
+from . import _build, use_op, use_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (227 KiB)
@@ -269,7 +274,9 @@ def _launch(device: torch.device, fn, *args) -> int:
 
 
 def _check(name: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           num_groups: int) -> None:
+           num_groups: int, pointer: bool = True) -> None:
+    """What the kernels take. The custom op's fake runs it with `pointer`
+    False: a fake tensor has shapes, dtypes and strides but no data."""
     if x.ndim != 4:
         raise ValueError(f"{name} expects NHWC [B,H,W,C], got {tuple(x.shape)}")
     c = x.shape[-1]
@@ -279,7 +286,7 @@ def _check(name: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"{name} supports float32 and bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} expects NHWC-contiguous (channels_last) memory")
-    if x.data_ptr() % 16:
+    if pointer and x.data_ptr() % 16:
         raise ValueError(f"{name}: x's data pointer is not 16-byte aligned")
     for pname, p in (("weight", weight), ("bias", bias)):
         if p.device != x.device or p.shape != (c,) or not p.is_contiguous():
@@ -308,8 +315,18 @@ def gn_swish(
     float32, and is rounded once; the plain version multiplies in the
     storage dtype. In bfloat16 the two can differ by one bf16 ulp.
     """
+    if use_op(x) and not return_stats:
+        return torch.ops.srewd.gn_swish(x, weight, bias, int(num_groups), float(eps),
+                                        bool(apply_swish))
     if use_plain(x):
         return gn_swish_reference(x, weight, bias, num_groups, eps, apply_swish, return_stats)
+    return _launch_forward(x, weight, bias, num_groups, eps, apply_swish, return_stats)
+
+
+def _launch_forward(x, weight, bias, num_groups, eps, apply_swish, return_stats=False):
+    """The forward kernel's launch on the current stream (the wrapper's CUDA
+    route and the custom op's CUDA implementation); counts
+    `gn_swish.launches`."""
     _check("gn_swish", x, weight, bias, num_groups)
     b, h, w, c = x.shape
     plan = gn_plan(x.shape, num_groups, x.dtype)
@@ -333,6 +350,30 @@ def gn_swish(
 
 
 gn_swish.launches = 0
+
+
+@torch.library.custom_op("srewd::gn_swish", mutates_args=(), device_types="cuda")
+def _gn_swish_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                 eps: float, apply_swish: bool) -> torch.Tensor:
+    """K3's forward as a graph node of an exported program."""
+    return _launch_forward(x, weight, bias, num_groups, eps, apply_swish)
+
+
+@_gn_swish_op.register_kernel("cpu")
+def _(x, weight, bias, num_groups, eps, apply_swish):
+    return gn_swish_reference(x, weight, bias, num_groups, eps, apply_swish)
+
+
+@_gn_swish_op.register_fake
+def _(x, weight, bias, num_groups, eps, apply_swish):
+    if x.device.type == "cuda":
+        _check("gn_swish", x, weight, bias, num_groups, pointer=False)
+        # whether a plan exists does not depend on the batch, which may be symbolic
+        gn_plan((1, *x.shape[1:]), num_groups, x.dtype)
+    elif x.ndim != 4 or x.shape[-1] % num_groups:
+        raise ValueError(f"gn_swish expects NHWC [B,H,W,C] with C a multiple of "
+                         f"num_groups={num_groups}, got {tuple(x.shape)}")
+    return torch.empty_like(x)
 
 
 def gn_swish_backward(x, dy, weight, bias, mean, rstd, num_groups: int = 32,

@@ -70,14 +70,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def member_seed(seed: int, member: int) -> int:
-    """The generator seed of ensemble member `member` (member 0: `seed`)."""
-    if member == 0:
-        return int(seed)
-    state = np.random.SeedSequence([int(seed), int(member)]).generate_state(1, np.uint64)
-    return int(state[0]) >> 1
-
-
 def main(argv=None) -> dict:
     args = parse_args(argv)
     from .cli import (
@@ -87,6 +79,7 @@ def main(argv=None) -> dict:
     from .data.timeindex import format_date, months_of, parse_date
     from .diffusion.schedule import Schedule
     from .models.factory import build_model
+    from .utils.seeding import member_seed
 
     device = resolve_device(args.device)
     cuda_numerics(device)
