@@ -2,12 +2,13 @@
 """Drive the PyTorch port's sampling, training and pretraining paths of
 every residual architecture on one CUDA card and check them.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-13
+    python3 chip_smoke.py                  # the smoke run, phases 1-14
     python3 chip_smoke.py --profile        # phases 1-2, then the UNet profile
     python3 chip_smoke.py --train-kernels  # phases 1-2, the shapes, the bf16 step's kernels
     python3 chip_smoke.py --stress N       # phases 1-6, then steps 7 and 10 N times each
     python3 chip_smoke.py --bf16-step N    # phases 1-2, then phase 11's step at N draw seeds
     python3 chip_smoke.py --serve          # phases 1-2, phase 3's shapes, phase 6, phase 13
+    python3 chip_smoke.py --ddp            # phases 1-2, phase 6, phase 14
 
 Phases, one JSON line each (`t_sec`: seconds since the start); any failure
 exits non-zero before the result. Every line, and a failure's traceback,
@@ -73,7 +74,9 @@ with an option), whole:
                 a finite, not all-zero gradient on every UNet parameter (a
                 kernel without a gradient would leave zeros upstream of it),
                 and the step is timed (steps/s) and profiled (device ms of
-                K1, K2, K3 per step, idle share).
+                K1, K2, K3 per step, idle share). The first run's steps
+                6-10 are timed as phase 14 times its runs
+                (`run_step_host_ms_6_10`).
   7. step     — one loss.backward() of the full-width phydiff model with the
                 kernels against one inside reference_ops() (same weights,
                 batch, t, gamma and noise, dropout 0, batch 2, float32): loss
@@ -168,15 +171,45 @@ with an option), whole:
                 Last, `python -m srewd_tpu_torch.bench_serve` at its
                 full-width defaults (sr3, bf16, DPM-25, 108 fields), its
                 JSON line passed through.
-  --profile — instead of 3-13: per dtype, one full-width UNet call by host
+ 14. ddp      — data parallelism. (a) `python -m torch.distributed.run
+                --standalone --nproc_per_node=1` of `srewd_tpu_torch.train`'s
+                main (wrapped by this script's `--worker train-main`, which
+                reads the rank's own launch counters) on phase 6's config
+                for 10 steps: the process group NCCL at world size 1, the
+                loss under DistributedDataParallel, K1, K2, K3 and its
+                backward launched in the rank and no plain version, the
+                first loss within 1e-6 relative of phase 6's and the first
+                10 within 1e-4 (a fresh process: cuDNN may time other
+                algorithms). The rank first runs the same train.main with
+                torchrun's WORLD_SIZE hidden (no process group, no DDP),
+                where cuDNN times its algorithms; the host ms per step of
+                steps 6-10 of each run, between two synchronisations, give
+                DDP's cost at world size 1 (`ddp_overhead_ms`; phase 6's
+                first run timed the same way beside them). (b) two ranks on
+                the one card over gloo (NCCL refuses two ranks on one
+                device; `--worker gloo-step`: started before (a), they read
+                their data and wait for it to end; cuDNN's heuristic
+                algorithms), phase 6's config at local
+                batch 2 (dropout 0.2) for 5 steps, against this process at
+                batch 4 on the same global batches and seed: the first
+                step's reduced gradients by phase 7's rule (1e-3 relative
+                RMSE per leaf, its float64 diagnostic beyond it), the 5
+                losses within 1e-4 relative, both ranks' parameters bit for
+                bit (SHA-256), and one gathered validation batch (DDIM-10)
+                on the ranks' final weights against this process's on the
+                same weights: the fields within 1e-4 relative RMSE, each
+                Kelvin metric within 1e-4 relative. Its step time is a
+                correctness run's, not a scaling number: gloo reduces
+                through the host.
+  --profile — instead of 3-14: per dtype, one full-width UNet call by host
                 clock and by torch.profiler's device time per kernel, the card's
                 idle share, and one DDIM-50 generate_sr (see profile_unet).
-  --train-kernels — instead of 3-13: per batch 4 and 16, bf16, K1 with its
+  --train-kernels — instead of 3-14: per batch 4 and 16, bf16, K1 with its
                 row LSE, K2, K3 with its statistics and K3's backward per
                 phydiff training step, with plain and library times and the
                 bound (see train_kernel_table); then a bf16 and a float32
                 phydiff step profiled (profile_train_steps).
-  --stress N — instead of 7-13, after phases 1-6 as in the smoke run:
+  --stress N — instead of 7-14, after phases 1-6 as in the smoke run:
                 phase 7's and phase 10's training steps N times each with
                 the cuDNN settings phase 6 leaves, every kernel
                 launch repeated (bit-identical) and held against its plain
@@ -184,14 +217,16 @@ with an option), whole:
                 (see stress_step).
   --serve — phases 1-2, phase 3's shapes and `unet_call` lines, phase 6,
                 then phase 13 (no kernels line).
-  --bf16-step N — instead of 3-13: phase 11's bf16 step, kernels against
+  --ddp — phases 1-2, phase 6, then phase 14 (no kernels line).
+  --bf16-step N — instead of 3-14: phase 11's bf16 step, kernels against
                 plain under the same bound, at draw seeds 3 .. N+2 (phase 11
                 takes seed 3), with the cuDNN settings phase 11 meets.
 Then the kernels' summary line, the card's name and power limit, and the
 result line. In the summary line, `launches` counts the kernel's launches in
 the main-path runs, each counted from 0: phase 4, the first run of phase 6,
-phases 8, 9, 11, 12 and 13 (phase 13's loaded artifact counted in its own
-process; `launches_by_phase` splits them; the launches that
+phases 8, 9, 11, 12, 13 and 14 (phase 13's loaded artifact and phase 14's
+ranks counted in their own processes; `launches_by_phase` splits them; the
+launches that
 hold a kernel against its plain version are not among them); `ms`, `plain_ms`,
 `library_ms` and `bound_ms` are device time per main-path unit, float32:
 one UNet call at batch 8 for K1 and K3, one training step at batch 4 for K2
@@ -1020,7 +1055,8 @@ def run_train_slice(torch, workdir, device) -> dict:
 
     reset_counts()
     t0 = time.perf_counter()
-    first = train.main(["-c", cfg_path, "--device", str(device)])
+    with _timed_steps(torch) as timing:  # phase 14(a) times its run so
+        first = train.main(["-c", cfg_path, "--device", str(device)])
     sec = time.perf_counter() - t0
     launches, plain_calls = read_counts()
     ckpts = glob.glob(os.path.join(workdir, "experiments", "*", "checkpoint", "I10_E*"))
@@ -1043,7 +1079,8 @@ def run_train_slice(torch, workdir, device) -> dict:
     vals = first["val"][-1][1] if first["val"] else {}
     emit({"phase": "train", "steps": len(losses), "batch": TRAIN_BATCH, "dtype": "f32",
           "losses": [losses[s] for s in sorted(losses)], "sec_20_steps": sec,
-          "steps_per_sec_run": first["steps_per_sec"], "launches": launches,
+          "steps_per_sec_run": first["steps_per_sec"],
+          "run_step_host_ms_6_10": timing["step_host_ms"], "launches": launches,
           "plain_calls": plain_calls, "resumed_steps": sorted(resumed),
           "resume_max_rel_diff": rel, "launches_resume": launches_resume,
           "val_kelvin": vals})
@@ -1056,7 +1093,9 @@ def run_train_slice(torch, workdir, device) -> dict:
     check(rel <= 1e-6, f"resumed losses differ from the first run's by {rel} (relative)")
     check(bool(vals) and all(math.isfinite(v) for v in vals.values()),
           f"validation metrics in Kelvin not finite: {vals}")
-    return {"launches": launches, "step": step, "config": cfg_path, "checkpoint": final[0]}
+    return {"launches": launches, "step": step, "config": cfg_path, "checkpoint": final[0],
+            "losses": [losses[s] for s in sorted(losses)],
+            "run_step_host_ms_6_10": timing["step_host_ms"]}
 
 
 def _step_grads(torch, model, batch, sched, draws) -> tuple:
@@ -1093,12 +1132,15 @@ def _grad_report(grads_k, grads_p) -> dict:
             "worst_leaves": [[k, v] for k, v in top]}
 
 
-def _float64_check(torch, model, batch, sched, draws, leaves, sides: dict) -> dict:
+def _float64_check(torch, model, batch, sched, draws, leaves, sides: dict,
+                   dropout_seed=None) -> dict:
     """When a step breaks its bound: `leaves`' gradients recomputed in float64
     on the plain path (a float64 copy of the model: the same weights, batch,
     t, gamma and noise; the bicubic condition and the stencils stay float32,
-    the spliter's FFT complex64), and each side's relative RMSE to that
-    answer per leaf: the side far from it is the wrong one."""
+    the spliter's FFT complex64; with `dropout_seed`, the card's default
+    generator seeded with it first, so Dropout's float32 uniforms drop what
+    the step dropped), and each side's relative RMSE to that answer per
+    leaf: the side far from it is the wrong one."""
     import copy
 
     from srewd_tpu_torch.ops import reference_ops
@@ -1113,6 +1155,10 @@ def _float64_check(torch, model, batch, sched, draws, leaves, sides: dict) -> di
             part.dtype = torch.float64
     b64 = {k: v.double() for k, v in batch.items()}
     d64 = {**draws, "u": draws["u"].double(), "noise": draws["noise"].double()}
+    if dropout_seed is not None:
+        from srewd_tpu_torch.training.trainer import _seed_default_generator
+
+        _seed_default_generator(batch["HR"].device, dropout_seed)
     with reference_ops():
         loss64, g64 = _step_grads(torch, m64, b64, sched, d64)
     del m64
@@ -2554,9 +2600,410 @@ print(json.dumps(out))
     return dict(total)
 
 
+# ------------------------------------------------------------------- phase 14
+DDP_STEPS = 10  # 14(a): train.main under torchrun, world size 1
+DDP_RANKS, DDP_LOCAL_BATCH, DDP_GLOO_STEPS = 2, 2, 5  # 14(b): two gloo ranks on the card
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _first_grads(trainer) -> dict:
+    """The gradients the first optimizer step of `trainer` sees (after the
+    ranks' reduction), filled when it runs."""
+    grads = {}
+
+    def hook(optimizer, args, kwargs):
+        if not grads:
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in trainer.model.unet.named_parameters()})
+
+    trainer.optimizer.register_step_pre_hook(hook)
+    return grads
+
+
+@contextlib.contextmanager
+def _outputs(cls, method: str):
+    """While open, every value `cls.method` returns is appended to the
+    yielded list."""
+    orig = getattr(cls, method)
+    got = []
+
+    def call(self, *args, **kwargs):
+        got.append(orig(self, *args, **kwargs))
+        return got[-1]
+
+    setattr(cls, method, call)
+    try:
+        yield got
+    finally:
+        setattr(cls, method, orig)
+
+
+@contextlib.contextmanager
+def _timed_steps(torch, on_first=None):
+    """While open, DiffusionTrainer.train_on_batch_async is timed as an entry
+    point calls it: the yielded dict gets the first call's seconds, to a
+    synchronise ("first_step_sec"; cuDNN times its algorithms there), and the
+    host ms per step of calls 6..DDP_STEPS, between synchronisations after
+    calls 5 and DDP_STEPS ("step_host_ms"); `on_first(trainer)` runs before
+    the first call."""
+    from srewd_tpu_torch.training.trainer import DiffusionTrainer
+
+    out, marks = {}, []
+    orig = DiffusionTrainer.train_on_batch_async
+
+    def step(self, batch):
+        n = len(marks) + 1
+        if n == 1:
+            if on_first is not None:
+                on_first(self)
+            torch.cuda.synchronize()
+            out["t0"] = time.perf_counter()
+        loss = orig(self, batch)
+        if n in (1, 5, DDP_STEPS):
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if n == 1:
+            out["first_step_sec"] = marks[0] - out.pop("t0")
+        if n == DDP_STEPS:
+            out["step_host_ms"] = (marks[-1] - marks[4]) / (DDP_STEPS - 5) * 1e3
+        return loss
+
+    DiffusionTrainer.train_on_batch_async = step
+    try:
+        yield out
+    finally:
+        DiffusionTrainer.train_on_batch_async = orig
+
+
+def worker_train_main(out: str, no_ddp_cfg: str, argv: list) -> int:
+    """Phase 14(a)'s rank, started by torchrun. First `train.main` of
+    `no_ddp_cfg` (the same run in another directory) with torchrun's
+    WORLD_SIZE hidden, so without a process group: cuDNN times its
+    algorithms there, and the DDP run meets the same ones in this process.
+    Then `srewd_tpu_torch.train.main(argv)` with this process's launch
+    counters from 0. Both timed by `_timed_steps`. Writes to `out` as JSON:
+    the process group's backend and size as the DDP run's first step meets
+    them, its loss module (DistributedDataParallel), its launches and plain
+    calls, both runs' losses and step times, and the seconds from this
+    process's start to each run and to the end."""
+    import torch
+    import torch.distributed as dist
+
+    from srewd_tpu_torch import train
+    from srewd_tpu_torch.parallel import rank, world_size
+
+    info = {"sec_start_to_runs": time.perf_counter() - T0}
+    no_ddp_argv = [no_ddp_cfg if a == argv[argv.index("-c") + 1] else a for a in argv]
+    hidden = os.environ.pop("WORLD_SIZE")
+    try:
+        with _timed_steps(torch) as timing:
+            first = train.main(no_ddp_argv)
+    finally:
+        os.environ["WORLD_SIZE"] = hidden
+    info.update(no_ddp_losses=[v for _, v in first["losses"]],
+                no_ddp=timing, sec_start_to_ddp_run=time.perf_counter() - T0)
+
+    def on_first(trainer):
+        info.update(backend=dist.get_backend(), world_size=world_size(), rank=rank(),
+                    loss_module=type(trainer._loss).__name__, device=str(trainer.device))
+
+    reset_counts()
+    with _timed_steps(torch, on_first) as timing:
+        summary = train.main(argv)
+    launches, plain = read_counts()
+    info.update(launches=launches, plain_calls=plain,
+                losses=[v for _, v in summary["losses"]], ddp=timing,
+                sec_start_to_end=time.perf_counter() - T0)
+    with open(out, "w") as f:
+        json.dump(info, f)
+    return 0
+
+
+def worker_gloo_step(workdir: str, cfg_path: str) -> int:
+    """Phase 14(b)'s rank (RANK, WORLD_SIZE, MASTER_* given by the parent).
+    It builds its stride of the data, then waits for a line on its standard
+    input (the parent sends it once 14(a) is done with the card), joins the
+    gloo group on the card's cuda:0, as the other rank does (NCCL refuses
+    two ranks on one card), with cuDNN deterministic and its algorithms
+    chosen by heuristics (no time spent timing them: the comparison allows
+    another algorithm per process). DDP_GLOO_STEPS trainer steps on this
+    rank's stride, then one gathered validation batch. Writes
+    ddp_gloo_rank<r>.json (losses, the ranks' mean; launches; the
+    validation metrics; a SHA-256 of the parameters' bytes; seconds per
+    stage) and, on rank 0, ddp_gloo_rank0.pt (the first step's reduced
+    gradients, the final parameters and the validation batch's gathered
+    fields, normalised)."""
+    import hashlib
+
+    import torch
+
+    from srewd_tpu_torch.cli import Config, build_data_handler, build_trainer
+    from srewd_tpu_torch.parallel import all_gather_rows, init_distributed, mean_across, shutdown
+    from srewd_tpu_torch.training.trainer import DiffusionTrainer, run_validation
+
+    opt = Config(cfg_path, phase="train", experiment=False).get_opt()
+    opt["path"]["checkpoint"] = None
+    r = int(os.environ["RANK"])
+    dh = build_data_handler(opt, process_index=r, process_count=DDP_RANKS)
+    batches = [b for _, b in zip(range(DDP_GLOO_STEPS), dh.train_batches(epoch=1))]
+    stages = {"ready": time.perf_counter() - T0}
+    sys.stdin.readline()
+    t_go = time.perf_counter()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    init_distributed("gloo")
+    try:
+        trainer = build_trainer(opt, device)
+        grads = _first_grads(trainer)
+        stages["built"] = time.perf_counter() - t_go
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [trainer.train_on_batch_async(b) for b in batches]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+        launches, plain = read_counts()
+        losses = mean_across(torch.stack(losses)).tolist()
+        with _outputs(DiffusionTrainer, "sample_batch") as fields:
+            val = run_validation(opt, dh, trainer, max_batches=1)
+        sr = all_gather_rows(fields[0])
+        stages["trained_and_validated"] = time.perf_counter() - t_go
+        params = {k: v.detach().cpu() for k, v in trainer.model.unet.state_dict().items()}
+        digest = hashlib.sha256()
+        for k in sorted(params):
+            digest.update(params[k].numpy().tobytes())
+        if r == 0:
+            torch.save({"grads": {k: v.cpu() for k, v in grads.items()}, "params": params,
+                        "sr": sr.cpu()}, os.path.join(workdir, "ddp_gloo_rank0.pt"))
+        stages["saved"] = time.perf_counter() - t_go
+        with open(os.path.join(workdir, f"ddp_gloo_rank{r}.json"), "w") as f:
+            json.dump({"losses": losses, "launches": launches, "plain_calls": plain,
+                       "val": val, "params_sha256": digest.hexdigest(),
+                       "n_train": len(dh.train_timestamps), "step_host_ms": step_ms,
+                       "stages_sec": stages}, f)
+    finally:
+        shutdown()
+    return 0
+
+
+class _GlobalVal:
+    """The ranks' validation handlers seen as one process: each batch rank
+    0's rows, then rank 1's."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def val_batches(self):
+        import numpy as np
+
+        for bs in zip(*(p.val_batches() for p in self.parts)):
+            yield {k: np.concatenate([b[k] for b in bs]) for k in bs[0]}
+
+    def inverse_transform(self, data, months):
+        return self.parts[0].inverse_transform(data, months)
+
+
+def run_ddp_nccl(torch, workdir, phase6) -> dict:
+    """Phase 14(a): `python -m torch.distributed.run --standalone
+    --nproc_per_node=1` of worker_train_main: train.main of phase 6's config
+    for DDP_STEPS steps, without and then with the process group (NCCL)."""
+    with open(phase6["config"]) as f:
+        cfg = json.load(f)
+    # one checkpoint, at the end: phase 6 checks the saving and the resume
+    cfg["train"].update(n_iter=DDP_STEPS, save_checkpoint_freq=1000)
+    paths = {}
+    for name in ("ddp_nccl", "ddp_nccl_no_ddp"):
+        cfg["path"]["experiments_folder_path"] = os.path.join(workdir, name)
+        paths[name] = _write_config(workdir, name, cfg)
+    out = os.path.join(workdir, "ddp_nccl_rank0.json")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         os.path.join(REPO, "chip_smoke.py"), "--worker", "train-main", out,
+         paths["ddp_nccl_no_ddp"], "-p", "train", "-c", paths["ddp_nccl"], "--device", "cuda"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    sec = time.perf_counter() - t0
+    check(r.returncode == 0, f"torchrun train.main failed (rc {r.returncode}):\n"
+                             f"{r.stderr[-3000:]}")
+    with open(out) as f:
+        a = json.load(f)
+    ref = phase6["losses"][:DDP_STEPS]
+    first_rel = abs(a["losses"][0] - ref[0]) / abs(ref[0])
+    max_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref))
+    ddp, no_ddp = a["ddp"], a["no_ddp"]
+    line = {"phase": "ddp_nccl", "sec": sec, **{k: a[k] for k in (
+                "backend", "world_size", "loss_module", "device", "launches", "plain_calls",
+                "sec_start_to_runs", "sec_start_to_ddp_run", "sec_start_to_end")},
+            "first_step_sec": ddp["first_step_sec"],
+            "no_ddp_first_step_sec": no_ddp["first_step_sec"],
+            "step_host_ms": ddp["step_host_ms"], "steps_per_sec": 1e3 / ddp["step_host_ms"],
+            "no_ddp_step_host_ms": no_ddp["step_host_ms"],
+            "no_ddp_steps_per_sec": 1e3 / no_ddp["step_host_ms"],
+            "ddp_overhead_ms": ddp["step_host_ms"] - no_ddp["step_host_ms"],
+            "phase6_step_host_ms": phase6["run_step_host_ms_6_10"],
+            "phase6_steps_per_sec": 1e3 / phase6["run_step_host_ms_6_10"],
+            "losses": a["losses"], "phase6_losses": ref, "first_loss_rel_diff": first_rel,
+            "max_loss_rel_diff": max_rel,
+            "no_ddp_max_loss_rel_diff": max(abs(x - y) / abs(y) for x, y in zip(
+                a["losses"], a["no_ddp_losses"])),
+            "bounds": {"first": 1e-6, "all": 1e-4}}
+    emit(line)
+    check(a["backend"] == "nccl" and a["world_size"] == 1, f"not NCCL at world size 1: {a}")
+    check(a["loss_module"] == "DistributedDataParallel", f"the loss ran as {a['loss_module']}")
+    check(len(a["losses"]) == DDP_STEPS, f"{len(a['losses'])} losses logged")
+    check(all(v > 0 for v in a["launches"].values()),
+          f"a kernel was not launched in the rank: {a['launches']}")
+    check(sum(a["plain_calls"].values()) == 0, f"the plain versions ran: {a['plain_calls']}")
+    check(first_rel <= 1e-6, f"the first loss differs from phase 6's by {first_rel}")
+    check(max_rel <= 1e-4, f"the first {DDP_STEPS} losses differ from phase 6's by {max_rel}")
+    return a["launches"]
+
+
+def _start_gloo_ranks(workdir, cfg_path) -> list:
+    """Phase 14(b)'s two ranks (worker_gloo_step), each logging to
+    ddp_gloo_rank<r>.log; they read their data, then wait for a line on
+    their standard input."""
+    port = _free_port()
+    procs = []
+    for r in range(DDP_RANKS):
+        env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r),
+               "WORLD_SIZE": str(DDP_RANKS), "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        with open(os.path.join(workdir, f"ddp_gloo_rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--worker", "gloo-step",
+                 workdir, cfg_path], cwd=REPO, env=env, stdin=subprocess.PIPE, stdout=log,
+                stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def run_ddp_gloo(torch, workdir, device, cfg_path, procs) -> dict:
+    """Phase 14(b): the two gloo ranks on the one card, local batch 2,
+    against this process at batch 4 on the same global batches and seed,
+    phase 6's config (dropout 0.2)."""
+    import numpy as np
+
+    from srewd_tpu_torch.cli import Config, build_data_handler, build_trainer
+    from srewd_tpu_torch.training.trainer import DiffusionTrainer, run_validation, step_seed
+
+    t0 = time.perf_counter()
+    for p in procs:
+        p.stdin.write("go\n")
+        p.stdin.close()
+    opt = Config(cfg_path, phase="train", experiment=False).get_opt()
+    opt["path"]["checkpoint"] = None
+    parts = [build_data_handler(opt, process_index=i, process_count=DDP_RANKS)
+             for i in range(DDP_RANKS)]
+    trainer = build_trainer(opt, device)
+    grads = _first_grads(trainer)
+    batches = [{k: np.concatenate([b[k] for b in bs]) for k in bs[0]}
+               for _, bs in zip(range(DDP_GLOO_STEPS),
+                                zip(*(p.train_batches(epoch=1) for p in parts)))]
+    losses = [trainer.train_on_batch(b) for b in batches]
+    sec_one_process = time.perf_counter() - t0
+    for p in procs:
+        p.wait(timeout=240)
+    sec = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        with open(os.path.join(workdir, f"ddp_gloo_rank{r}.log")) as f:
+            check(p.returncode == 0, f"gloo rank {r} failed (rc {p.returncode}):\n"
+                                     f"{f.read()[-3000:]}")
+    ranks = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(workdir, f"ddp_gloo_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    saved = torch.load(os.path.join(workdir, "ddp_gloo_rank0.pt"), map_location=device)
+    rep = _grad_report(saved["grads"], grads)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"], losses))
+    diag = None
+    if rep["worst_grad_rel_rmse"] > 1e-3:
+        # the first step's draws, as train_on_batch_async makes them at step 0
+        # (the world-1 draws at batch 4: t, gamma's uniforms, the noise)
+        g = torch.Generator(device=device).manual_seed(step_seed(trainer.seed, 0))
+        b0 = trainer._device_batch(batches[0])
+        draws = {"t": torch.randint(1, trainer.schedule_train.num_timesteps + 1, (1,),
+                                    generator=g, device=device),
+                 "u": torch.rand(len(batches[0]["HR"]), generator=g, device=device),
+                 "noise": torch.randn(b0["HR"].shape, generator=g, device=device)}
+        model = build_trainer(opt, device).model  # the first step's weights
+        diag = _float64_check(torch, model, b0, trainer.schedule_train, draws,
+                              [k for k, _ in rep["worst_leaves"]],
+                              {"ddp": saved["grads"], "one_process": grads},
+                              dropout_seed=step_seed(trainer.seed, 0, 1))
+    # the validation of the ranks' final weights, gathered, against this
+    # process's on the same weights and global batch
+    trainer.model.unet.load_state_dict(saved["params"], strict=True)
+    with _outputs(DiffusionTrainer, "sample_batch") as fields:
+        val = run_validation(opt, _GlobalVal(parts), trainer, max_batches=1)
+    val_rel = max(abs(ranks[r]["val"][k] - v) / max(abs(v), 1e-30)
+                  for r in range(DDP_RANKS) for k, v in val.items())
+    sr_rel = rel_rmse(saved["sr"], fields[0])
+    line = {"phase": "ddp_gloo", "backend": "gloo", "ranks": DDP_RANKS, "device": "cuda:0",
+            "why_gloo": "NCCL refuses two ranks on one card",
+            "batch_per_rank": DDP_LOCAL_BATCH, "global_batch": DDP_RANKS * DDP_LOCAL_BATCH,
+            "steps": DDP_GLOO_STEPS, "sec": sec, "sec_one_process": sec_one_process,
+            "rank_stages_sec": [x["stages_sec"] for x in ranks],
+            "losses": ranks[0]["losses"], "one_process_losses": losses,
+            "loss_rel_diff": loss_rel, **rep,
+            "params_bit_identical": ranks[0]["params_sha256"] == ranks[1]["params_sha256"],
+            "val": ranks[0]["val"], "one_process_val": val, "val_rel_diff": val_rel,
+            "val_fields_rel_rmse": sr_rel,
+            "rank_step_host_ms": [x["step_host_ms"] for x in ranks],
+            "step_host_ms_note": "a correctness run: gloo reduces through the host",
+            "launches": [x["launches"] for x in ranks],
+            "plain_calls": [x["plain_calls"] for x in ranks],
+            "bounds": {"loss": 1e-4, "grad": 1e-3, "val": 1e-4, "val_fields": 1e-4},
+            "float64": diag}
+    emit(line)
+    check(all(x["n_train"] == ranks[0]["n_train"] for x in ranks), "the ranks' strides differ")
+    check(loss_rel <= 1e-4, f"the 2-rank losses differ from one process's by {loss_rel}")
+    check(rep["worst_grad_rel_rmse"] <= 1e-3,
+          f"the reduced gradient of {rep['worst_leaf']} differs by "
+          f"{rep['worst_grad_rel_rmse']} (relative RMSE)")
+    check(line["params_bit_identical"], "the two ranks' parameters differ")
+    check(sr_rel <= 1e-4, f"the gathered validation fields differ by {sr_rel} (relative RMSE)")
+    check(val_rel <= 1e-4, f"the gathered validation's metrics differ by {val_rel}")
+    for x in ranks:
+        check(all(v > 0 for v in x["launches"].values()),
+              f"a kernel was not launched in a rank: {x['launches']}")
+        check(sum(x["plain_calls"].values()) == 0, f"the plain versions ran: {x['plain_calls']}")
+    del trainer, saved
+    torch.cuda.empty_cache()
+    return {k: sum(x["launches"][k] for x in ranks) for k in ranks[0]["launches"]}
+
+
+def run_ddp(torch, workdir, device, phase6) -> dict:
+    """Phase 14: (b)'s ranks start and read their data while (a) runs, then
+    (b); the launches of (a)'s DDP run and (b)'s ranks, summed (a main-path
+    run)."""
+    with open(phase6["config"]) as f:
+        cfg = json.load(f)
+    cfg["data"].update(batch_size=DDP_LOCAL_BATCH, val_batch_size=DDP_LOCAL_BATCH)
+    cfg_b = _write_config(workdir, "ddp_gloo", cfg)
+    procs = _start_gloo_ranks(workdir, cfg_b)
+    try:
+        a = run_ddp_nccl(torch, workdir, phase6)
+        b = run_ddp_gloo(torch, workdir, device, cfg_b, procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {k: a[k] + b[k] for k in a}
+
+
 def kernel_entry(name, route, source, replaces, tot, launches_by_phase) -> dict:
     """The kernels line's entry: `launches` sums the main-path runs (phases
-    4, 6, 8, 9, 11, 12 and 13, each counted from 0), `launches_by_phase`
+    4, 6, 8, 9, 11, 12, 13 and 14, each counted from 0), `launches_by_phase`
     splits them."""
     entry = {"name": name, "route": route, "source": source, "replaces": replaces,
              "launches": sum(launches_by_phase.values()),
@@ -2619,10 +3066,11 @@ def report_cuda_kernels() -> None:
 def main(argv: list) -> int:
     stress = argv[1] if len(argv) == 2 and argv[0] == "--stress" else None
     bf16_steps = argv[1] if len(argv) == 2 and argv[0] == "--bf16-step" else None
-    if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"]) and not (
-            (stress or bf16_steps or "").isdigit()):
+    worker = argv[1] if len(argv) >= 3 and argv[0] == "--worker" else None
+    if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"], ["--ddp"]) and not (
+            (stress or bf16_steps or "").isdigit()) and worker not in ("train-main", "gloo-step"):
         print(f"chip_smoke: unknown arguments {argv}; the options are --profile, "
-              "--train-kernels, --serve, --stress N and --bf16-step N", file=sys.stderr)
+              "--train-kernels, --serve, --ddp, --stress N and --bf16-step N", file=sys.stderr)
         return 2
     import torch
 
@@ -2634,6 +3082,10 @@ def main(argv: list) -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if worker == "train-main":  # phase 14's ranks: no lines of their own
+        return worker_train_main(argv[2], argv[3], argv[4:])
+    if worker == "gloo-step":
+        return worker_gloo_step(*argv[2:])
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     mode = "".join("_" + a.lstrip("-") for a in argv)  # one file per mode
     KEEP["file"] = open(os.path.join(REPO, "chiprun_out", f"chip_smoke{mode}.jsonl"), "w")
@@ -2671,6 +3123,12 @@ def main(argv: list) -> int:
         cuda_numerics(device, training=True)
         for seed in range(3, 3 + int(bf16_steps)):
             compare_bf16_step(torch, device, seed)
+        say(smi)
+        return 0
+    if argv == ["--ddp"]:
+        with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
+            phase6 = run_train_slice(torch, workdir, device)
+            run_ddp(torch, workdir, device, phase6)
         say(smi)
         return 0
 
@@ -2716,10 +3174,12 @@ def main(argv: list) -> int:
         launches_bench = run_bench_twins(torch, workdir, device)
         launches_serve = run_serving(torch, workdir, device, phase6, per_arch, attn_shapes,
                                      gn_shapes)
+        launches_ddp = run_ddp(torch, workdir, device, phase6)
 
     by_phase = {"sample_phydiff": launches_sample, "train_phydiff": phase6["launches"],
                 "pretrain": pre["launches"], "archs": launches_archs,
-                "train_bf16": launches_bf16, "bench": launches_bench, "serve": launches_serve}
+                "train_bf16": launches_bf16, "bench": launches_bench, "serve": launches_serve,
+                "ddp": launches_ddp}
 
     def entry(name, source, replaces):
         return kernel_entry(name, "cuda", source, replaces, kernels[name],

@@ -6,7 +6,9 @@ checkpoint), the trainer's construction and the device choice.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 
 import numpy as np
 import torch
@@ -14,17 +16,20 @@ import torch.nn as nn
 
 from .configs.config import Config
 from .data.pipeline import DataHandler
+from .parallel import (
+    broadcast_object, init_distributed, local_device, rank, shutdown, world_size)
 from .training.checkpoint import CheckpointManager
 from .utils.jax_params import load_npz, unet_state_from_jax
 from .utils.seeding import set_seeds
 
 __all__ = ["Config", "build_data_handler", "build_trainer", "sampler_kwargs", "set_seeds",
            "init_weights", "load_model_weights", "random_init_", "resolve_device",
-           "denormalize"]
+           "process_device", "training_run", "denormalize"]
 
 
 def build_data_handler(opt: dict, storage_root: str | None = None, **overrides) -> DataHandler:
-    """DataHandler from opt["data"], single-process (no jax process count)."""
+    """DataHandler from opt["data"]; in a process group, this rank's stride
+    of the index (process_index / process_count from the rank)."""
     d = opt["data"]
     kw = dict(
         dataroot=d["dataroot"],
@@ -46,6 +51,8 @@ def build_data_handler(opt: dict, storage_root: str | None = None, **overrides) 
         storage_root=storage_root or d["dataroot"],
         read_threads=int(d.get("num_workers", 16)),
     )
+    if world_size() > 1:
+        kw.update(process_index=rank(), process_count=world_size())
     kw.update(overrides)
     return DataHandler(**kw).process_data()
 
@@ -137,6 +144,41 @@ def resolve_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name} requested but torch.cuda.is_available() is False")
     return device
+
+
+def process_device(name: str) -> torch.device:
+    """The device of this process for `--device name`. Under torchrun (its
+    WORLD_SIZE in the environment) the process first joins the process
+    group, NCCL for the card and gloo for the CPU, and a card request takes
+    cuda:LOCAL_RANK (parallel.local_device); otherwise resolve_device."""
+    if "WORLD_SIZE" not in os.environ:
+        return resolve_device(name)
+    device = local_device(name)
+    init_distributed("nccl" if device.type == "cuda" else "gloo")
+    return device
+
+
+@contextlib.contextmanager
+def training_run(config: str, phase: str, device_name: str):
+    """(opt, device) of a train or pretrain entry point's run: the process's
+    device (`process_device`; the process group left on exit), the training
+    numerics and seeds, the config with its run directories (rank 0 names
+    and creates them, every rank gets its opt), and the "base" (train.log
+    and the screen) and "val" (val.log) loggers; a rank other than 0 logs
+    to train_rank<r>.log and val_rank<r>.log only."""
+    from .utils.logging import setup_logger
+
+    device = process_device(device_name)
+    try:
+        cuda_numerics(device, training=True)
+        set_seeds(0)
+        opt = broadcast_object(Config(config, phase=phase).get_opt() if rank() == 0 else None)
+        suffix = f"_rank{rank()}" if rank() else ""
+        setup_logger(None, opt["path"]["log"], "train" + suffix, screen=rank() == 0)
+        setup_logger("val", opt["path"]["log"], "val" + suffix)
+        yield opt, device
+    finally:
+        shutdown()
 
 
 def random_init_(module: nn.Module, seed: int) -> None:

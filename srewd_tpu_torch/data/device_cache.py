@@ -11,12 +11,18 @@ Batches equal DataHandler._batches bit for bit: the same seeded shuffle
 cached after it) and `skip` for a resume inside an epoch. A t2m field at
 128x256 is 0.13 MB in float32 (HR and LR together ~0.14 MB), so a year of
 hourly fields takes ~1.2 GB of the card's 80 GB.
+
+One process only: under several ranks each streams its own stride of the
+index (DataHandler's process_index), and `run_training` takes the cache at
+world size 1 only.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel import world_size
 
 __all__ = ["DeviceDataset"]
 
@@ -29,6 +35,9 @@ class DeviceDataset:
     """
 
     def __init__(self, dh, device, split: str = "train", chunk: int = 256):
+        if world_size() > 1:
+            raise RuntimeError("DeviceDataset holds one process's split; under several "
+                               "processes each rank streams its stride of the index")
         ts = dh.train_timestamps if split == "train" else dh.val_timestamps
         self._n = len(ts)
         self._batch_size = dh.train_batch_size if split == "train" else dh.val_batch_size

@@ -1,5 +1,5 @@
 """DataHandler: fitting, batching and date lookup for train/val (copy of
-srewd_tpu/data/pipeline.py, single process).
+srewd_tpu/data/pipeline.py).
 
 Batch contract (NHWC numpy):
 
@@ -11,6 +11,13 @@ with variables concatenated channel-wise in config order. The bicubic x4
 Fitting: per (variable x lr/hr x month group) global or local standard
 scaling on the train range only, cached on disk (scalers.py). Validation
 reuses the fitted train transforms.
+
+Several processes (`process_count` > 1, one per rank): every process fits
+the same scalers and takes a disjoint stride of each split's index,
+`process_index::process_count`, after trimming the index to a multiple of
+the count. Every rank then has the same number of batches, so no rank waits
+in a collective that another never reaches. (The JAX package strides
+without the trim, and its strides can differ by one timestamp.)
 """
 
 from __future__ import annotations
@@ -63,6 +70,8 @@ class DataHandler:
     storage_root: str | None = None
     read_threads: int = 16
     seed: int = 0
+    process_index: int = 0
+    process_count: int = 1
 
     stores: dict = field(default_factory=dict, init=False)
     scalers: dict = field(default_factory=dict, init=False)  # (var, type) -> set
@@ -71,6 +80,9 @@ class DataHandler:
     val_timestamps: np.ndarray | None = field(default=None, init=False)
 
     def __post_init__(self):
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"process_index {self.process_index} is not in "
+                             f"[0, {self.process_count})")
         if self.groups is None:
             self.groups = [list(range(1, 13))]
         if self.delays is not None:
@@ -128,6 +140,9 @@ class DataHandler:
                     (ts + np.timedelta64(lo_off, "h") >= st.timestamps[0])
                     & (ts + np.timedelta64(hi_off, "h") <= st.timestamps[-1])
                 ]
+        if self.process_count > 1:
+            ts = ts[:len(ts) - len(ts) % self.process_count]
+            ts = ts[self.process_index::self.process_count]
         return ts
 
     def assemble(self, ts_batch: np.ndarray, normalized: bool = True) -> dict:

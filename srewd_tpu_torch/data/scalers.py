@@ -96,7 +96,12 @@ class MonthlyScalerSet:
         return cls(z, z + 1.0, "IdentityTransform")
 
     def save(self, path: str) -> None:
-        np.savez(path, mean=self.mean, std=self.std, kind=np.array(self.kind))
+        """Write `path` whole or not at all (ranks of one run share the cache:
+        one may read while another writes)."""
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, mean=self.mean, std=self.std, kind=np.array(self.kind))
+        os.replace(tmp, path)
 
     @classmethod
     def load(cls, path: str) -> "MonthlyScalerSet":

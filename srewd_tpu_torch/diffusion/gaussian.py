@@ -27,6 +27,13 @@ sub-sequence for DDIM, exactly the integers the JAX chains `fold_in`
 (DPM-Solver++ is deterministic after `init`). Tests feed the noise JAX
 draws, so both chains see the same numbers.
 
+Under data parallelism (parallel/) a batch of B rows is one rank's share
+of a global batch of W B: t is one draw for the global batch, and gamma's
+uniforms and the chain's noise are drawn over the global shape, each rank
+keeping its rows (`parallel.draw_rows`), as JAX draws over the global
+sharded array. Handed-in `u`, `init` and `noises[i]` hold the global
+batch's rows too. At world size 1 the draws are what they always were.
+
 `keep_every=k` (the reference's `continous` mode) also returns the image
 after every k-th step as [S // k, *shape], S the steps walked; the last
 S mod k steps make no frame, as the JAX chains' segmented scans.
@@ -40,6 +47,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import draw_rows, rows
 from .schedule import Schedule
 
 # denoise_fn(x_t, noise_level[B]) -> predicted epsilon; conditioning closed over.
@@ -63,8 +71,9 @@ def draw_time_and_gamma(
     """(t, gamma): one t ~ U[1,T] per batch, gamma ~ U(s[t-1], s[t]) per sample,
     s = sqrt_alphas_cumprod_prev.
 
-    `t` ([1] integer tensor) and `u` ([B] uniforms in [0, 1)) may be handed
-    in instead of drawn from `generator`; gamma = max(lo, u (hi - lo) + lo),
+    `t` ([1] integer tensor) and `u` (uniforms in [0, 1) for the global
+    batch, world_size() x B; the rank takes its rows) may be handed in
+    instead of drawn from `generator`; gamma = max(lo, u (hi - lo) + lo),
     the form of jax.random.uniform(minval=lo, maxval=hi) in the JAX package.
     s falls with t, so lo > hi and that form gives gamma = lo for every
     sample; the reference's np.random.uniform(lo, hi) would spread gamma
@@ -75,8 +84,8 @@ def draw_time_and_gamma(
     if t is None:
         t = torch.randint(1, schedule.num_timesteps + 1, (1,), generator=generator,
                           device=device)
-    if u is None:
-        u = torch.rand(batch, generator=generator, device=device)
+    u = draw_rows(torch.rand, batch, generator=generator, device=device) if u is None \
+        else u[rows(batch)]
     t = t.to(device).reshape(1)
     lo = schedule.sqrt_alphas_cumprod_prev[t - 1]
     hi = schedule.sqrt_alphas_cumprod_prev[t]
@@ -85,9 +94,11 @@ def draw_time_and_gamma(
 
 
 def _draw(shape, generator, device, noises, i):
+    """The rank's rows of a chain draw: noises[i] (the global batch's), or
+    normal noise drawn over the global shape."""
     if noises is not None:
-        return noises[i].to(device=device, dtype=torch.float32)
-    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return noises[i][rows(shape[0])].to(device=device, dtype=torch.float32)
+    return draw_rows(torch.randn, shape[0], *shape[1:], generator=generator, device=device)
 
 
 def _frames(img: torch.Tensor, frames: list, step: int, n_steps: int,
@@ -225,8 +236,7 @@ def run_chain(
     keep_every: Optional[int] = None,
 ):
     """Walk `plan` from `init` (or a draw) with `chain_step`."""
-    img = init.to(device=device, dtype=torch.float32) if init is not None else _draw(
-        shape, generator, device, None, 0)
+    img = _draw(shape, generator, device, None if init is None else [init], 0)
     zero = torch.zeros_like(img)
     prev_x0 = zero
     steps = torch.arange(plan.n_steps, device=device)

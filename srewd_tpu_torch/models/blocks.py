@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..ops.flash_attention import flash_attention_trainable
 from ..ops.fused_groupnorm import gn_swish_trainable
 from ..ops.resize import upsample_nearest2x
-from .layers import Conv2d, Linear
+from .layers import Conv2d, Dropout, Linear
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -120,7 +120,7 @@ class Block(nn.Module):
         self.block = nn.Sequential(
             FusedGroupNorm(dim, groups, with_swish=True),
             nn.Identity(),
-            nn.Dropout(dropout) if dropout > 0 else nn.Identity(),
+            Dropout(dropout) if dropout > 0 else nn.Identity(),
             Conv2d(dim, dim_out, 3, padding=1),
         )
 

@@ -51,6 +51,7 @@ from ..diffusion.gaussian import (
 from ..diffusion.schedule import Schedule
 from ..ops.finite_diff import fd_stencils
 from ..ops.resize import bicubic_up4
+from ..parallel import draw_rows, rows
 from .rrdb import RRDBNet
 from .simple_cnn import SimpleCNN
 from .unet import VARIANTS, WeatherUNet
@@ -182,14 +183,17 @@ class DiffusionModel:
 
         t, gamma's uniforms `u` and the noise are drawn from `generator`
         unless handed in (tests feed the JAX draws); dropout draws from the
-        device's default generator.
+        device's default generator. The batch is this rank's rows of the
+        global batch: `u` and the noise are drawn over (or handed in for)
+        the global batch, and the rank takes its rows (parallel/).
         """
         hr = batch["HR"]
         cond = self.condition(batch)
         x_start = hr if self.arch == "sr3" else hr - cond
-        _, gamma = draw_time_and_gamma(schedule, hr.shape[0], generator=generator, t=t, u=u)
-        if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
+        n = hr.shape[0]
+        _, gamma = draw_time_and_gamma(schedule, n, generator=generator, t=t, u=u)
+        noise = draw_rows(torch.randn, n, *x_start.shape[1:], generator=generator,
+                          device=x_start.device) if noise is None else noise[rows(n)]
         x_noisy = q_sample(x_start, gamma, noise)
         kwargs = self._conditioning(cond)
         rrdb_sr = None

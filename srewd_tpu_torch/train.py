@@ -17,6 +17,18 @@ is held to deterministic algorithms, chosen by timing on each shape's first
 call (cli.cuda_numerics), so a resumed run in the same process repeats the
 steps of the run it resumes. `--device` defaults to the card; a CUDA
 request without one raises.
+
+Data parallelism: run it under torchrun, one process per card,
+
+    python -m torch.distributed.run --nproc_per_node=N -m srewd_tpu_torch.train -c <cfg>.json
+    python -m torch.distributed.run --nproc_per_node=2 -m srewd_tpu_torch.train -c <cfg>.json --device cpu
+
+Each rank joins the process group from torchrun's environment (NCCL on
+cuda:LOCAL_RANK; gloo with `--device cpu`), reads its stride of the index
+and trains under DistributedDataParallel. `data.batch_size` is per process:
+the global batch is N times it, as the JAX package's per-host batch. Rank 0
+creates the run's directories, writes the checkpoints and logs to the
+screen; the other ranks log to train_rank<r>.log.
 """
 
 from __future__ import annotations
@@ -38,29 +50,23 @@ def main(argv=None) -> dict:
     """Run the phase; returns run_training's summary (train) or the
     validation metrics (val)."""
     args = parse_args(argv)
-    from .cli import (
-        Config, build_data_handler, build_trainer, cuda_numerics, resolve_device, set_seeds)
+    from .cli import build_data_handler, build_trainer, training_run
     from .configs.config import dict2str
+    from .parallel import rank, world_size
     from .training.trainer import run_training, run_validation
-    from .utils.logging import setup_logger
 
-    device = resolve_device(args.device)
-    cuda_numerics(device, training=True)
-    set_seeds(0)
-    opt = Config(args.config, phase=args.phase).get_opt()
-    setup_logger(None, opt["path"]["log"], "train", screen=True)
-    setup_logger("val", opt["path"]["log"], "val")
-    logger = logging.getLogger("base")
-    logger.info(dict2str(opt))
+    with training_run(args.config, args.phase, args.device) as (opt, device):
+        logger = logging.getLogger("base")
+        logger.info(dict2str(opt))
+        logger.info(f"Rank {rank()} of {world_size()} on {device}.")
 
-    logger.info("Creating datasets.")
-    dh = build_data_handler(opt)
-    logger.info("Building model and trainer.")
-    trainer = build_trainer(opt, device)
-    if args.phase == "train":
-        return run_training(opt, dh, trainer, logger)
-    return run_validation(opt, dh, trainer, logging.getLogger("val"))
-
+        logger.info("Creating datasets.")
+        dh = build_data_handler(opt)
+        logger.info("Building model and trainer.")
+        trainer = build_trainer(opt, device)
+        if args.phase == "train":
+            return run_training(opt, dh, trainer, logger)
+        return run_validation(opt, dh, trainer, logging.getLogger("val"))
 
 if __name__ == "__main__":
     main()

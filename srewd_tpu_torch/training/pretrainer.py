@@ -12,6 +12,12 @@ Unlike the JAX trainer, which restores params only and reruns every epoch,
 `resume` also restores the optimizer and `run_pretraining` continues with
 the epoch after the checkpoint's. The IT/SR/HR result plates need
 matplotlib and are not ported (ROADMAP.md Queue 1 item 10).
+
+Under torchrun (parallel/) the encoder trains under DistributedDataParallel
+on each rank's stride of the index: the gradients are averaged over the
+ranks, the epoch's loss is the ranks' mean, the evaluation gathers SR, HR
+and months before the metrics, and rank 0 alone writes the checkpoint
+(every rank waits for it).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch.nn as nn
 from ..models.rrdb import RRDBNet
 from ..models.simple_cnn import SimpleCNN
 from ..ops.losses import image_compare_loss, l1_loss
+from ..parallel import all_gather_rows, barrier, data_parallel, mean_across, rank
 from .checkpoint import STATE_FILE, CheckpointManager
 from .metrics import ValidationMetrics, create_metric_dict
 from .optimizers import get_optimizer
@@ -68,6 +75,7 @@ class EncoderTrainer:
     ):
         self.device = torch.device(device)
         self.module = module.to(self.device)
+        self._train_module = data_parallel(self.module, self.device)
         self.criterion = criterion
         self.optimizer = get_optimizer(optimizer, list(module.parameters()), lr)
         self.checkpoint_dir = checkpoint_dir
@@ -82,20 +90,20 @@ class EncoderTrainer:
         """One optimizer step; returns the loss as a device scalar."""
         self.module.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.criterion(self.module(lr_img), hr_img)
+        loss = self.criterion(self._train_module(lr_img), hr_img)
         loss.backward()
         self.optimizer.step()
         self.iteration += 1
         return loss.detach()
 
     def train_epoch(self, data_handler, epoch: int) -> tuple:
-        """(mean loss, steps) of one pass over the train split; the losses are
-        read from the device once, at the end."""
+        """(mean loss over the ranks, steps) of one pass over the train split;
+        the losses are read from the device once, at the end."""
         losses = [self.train_step(self._put(b["LR"]), self._put(b["HR"]))
                   for b in data_handler.train_batches(epoch=epoch)]
         if not losses:
             return float("nan"), 0
-        return float(torch.stack(losses).mean()), len(losses)
+        return float(mean_across(torch.stack(losses).mean())), len(losses)
 
     @torch.no_grad()
     def predict(self, lr_img: torch.Tensor) -> torch.Tensor:
@@ -104,27 +112,31 @@ class EncoderTrainer:
 
     def evaluate(self, data_handler) -> dict:
         """The six metrics in Kelvin over the val split (pretrain.py's
-        argument order: SR first)."""
+        argument order: SR first), of the global batches under several ranks."""
         metrics = ValidationMetrics(create_metric_dict())
         for batch in data_handler.val_batches():
-            out = self.predict(self._put(batch["LR"]))
+            out = self.predict(self._put(batch["LR"])).float()
+            hr, months = (torch.as_tensor(np.asarray(batch[k])) for k in ("HR", "months"))
+            out, hr, months = (all_gather_rows(t) for t in (out, hr, months))
             inv = data_handler.inverse_transform(
-                {"SR": out.float().cpu().numpy(), "HR": np.asarray(batch["HR"])},
-                batch["months"])
+                {"SR": out.cpu().numpy(), "HR": hr.numpy()}, months.numpy())
             metrics.update(inv["SR"], inv["HR"])
         return metrics.compute_metrics()
 
     def save(self, epoch: int) -> Optional[str]:
+        """Rank 0 writes `pretrain_<name>_E{epoch}`; every rank waits for it."""
         if not self.checkpoint_dir:
             return None
         path = os.path.abspath(os.path.join(self.checkpoint_dir,
                                             f"pretrain_{self.name}_E{epoch}"))
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, f"{STATE_FILE}.tmp")
-        torch.save({"params": self.module.state_dict(),
-                    "opt_state": self.optimizer.state_dict(),
-                    "epoch": int(epoch), "iteration": self.iteration}, tmp)
-        os.replace(tmp, os.path.join(path, STATE_FILE))
+        if rank() == 0:
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, f"{STATE_FILE}.tmp")
+            torch.save({"params": self.module.state_dict(),
+                        "opt_state": self.optimizer.state_dict(),
+                        "epoch": int(epoch), "iteration": self.iteration}, tmp)
+            os.replace(tmp, os.path.join(path, STATE_FILE))
+        barrier()
         return path
 
     def resume(self, path: str) -> None:

@@ -10,10 +10,11 @@ losses once per `print_freq` steps (one host read per interval).
 
 Step randomness is a function of (seed, step), as the JAX step folds the
 step into its key: t, gamma's uniforms and the noise come from a generator
-seeded per step, and the device's default generator, which nn.Dropout draws
-from, is seeded per step too. A resumed run therefore repeats the first
-run's steps without any saved generator state; `run_training` also resumes
-inside an epoch, skipping the batches the checkpoint's steps consumed.
+seeded per step, and the device's default generator, which the UNet's
+Dropout (models/layers.py) draws from, is seeded per step too. A resumed
+run therefore repeats the first run's steps without any saved generator
+state; `run_training` also resumes inside an epoch, skipping the batches
+the checkpoint's steps consumed.
 
 The encoder (srdiff, physrdiff, and resdiff/phydiff with one) is part of
 the trainer's state: in the optimizer only when unlocked, and always in the
@@ -28,10 +29,22 @@ layer casts its weights per call (models/layers.py).
 Validation samples through a separate copy of the model, loaded with the
 trainer's weights or the EMA, never through the trainer's own modules.
 
+Data parallelism (under torchrun, parallel/): the loss is the forward of a
+small module (`_Loss`) wrapped in DistributedDataParallel, so the backward
+averages the gradients over the ranks; clipping, Adam, the EMA and the bf16
+shadow then see the reduced gradients and identical weights on every rank.
+Each rank trains on its stride of the index (`data.batch_size` rows, the
+global batch world_size() times that, as the JAX package's per-host batch)
+and draws over the global batch (diffusion/gaussian.py), so W ranks step
+as one process at W times the batch. Rank 0 alone writes checkpoints, then
+every rank passes a barrier; every rank resumes from the same one. Logged
+losses are averaged over the ranks when they are read, and validation
+gathers SR, HR and months before the metrics (`run_validation`).
+
 `run_training` feeds the steps from `train.device_data_cache`'s
-DeviceDataset (the split resident on the device) or else through a
-DevicePrefetcher (host batches assembled and copied ahead in a background
-thread), and captures a torch.profiler trace of `train.profile_steps` steps
+DeviceDataset (the split resident on the device; one process only) or else
+through a DevicePrefetcher (host batches assembled and copied ahead in a
+background thread), and captures a torch.profiler trace of `train.profile_steps` steps
 from `train.profile_start` into `train.profile_trace_dir` when it is set.
 Left out (ROADMAP.md Queue 1): wandb, PNG visualisation.
 """
@@ -45,11 +58,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..data.device_cache import DeviceDataset
 from ..data.prefetch import DevicePrefetcher, PinnedCopy
 from ..diffusion.schedule import Schedule
 from ..models.factory import DiffusionModel
+from ..parallel import all_gather_rows, barrier, data_parallel, mean_across, rank, world_size
 from ..utils.profiling import StepTimer, annotate, trace
 from .checkpoint import CheckpointManager
 from .metrics import TrainMetrics, ValidationMetrics, create_metric_dict
@@ -65,12 +80,30 @@ def step_seed(seed: int, step: int, stream: int = 0) -> int:
 
 
 def _seed_default_generator(device: torch.device, seed: int) -> None:
-    """Seed the default generator of `device` (the one nn.Dropout draws from)."""
+    """Seed the default generator of `device` (the one Dropout draws from)."""
     if device.type == "cuda":
         idx = device.index if device.index is not None else torch.cuda.current_device()
         torch.cuda.default_generators[idx].manual_seed(seed)
     else:
         torch.default_generator.manual_seed(seed)
+
+
+class _Loss(nn.Module):
+    """The training loss as a module's forward, the form DistributedDataParallel
+    takes: it hooks `forward`, and DiffusionModel is no module. Holds the
+    UNet and the encoder as submodules, so DDP reduces their gradients (a
+    locked encoder's parameters need none)."""
+
+    def __init__(self, model: DiffusionModel, schedule: Schedule):
+        super().__init__()
+        self.unet = model.unet
+        if model.encoder is not None:
+            self.encoder = model.encoder
+        self.model = model
+        self.schedule = schedule
+
+    def forward(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
+        return self.model.loss(batch, self.schedule, generator=generator, train=True)
 
 
 class DiffusionTrainer:
@@ -113,6 +146,7 @@ class DiffusionTrainer:
         if encoder is not None and model.lock_encoder:
             encoder.requires_grad_(False)
         self.optimizer = get_optimizer(optimizer, self.trainable, lr)
+        self._loss = data_parallel(_Loss(model, schedule_train), self.device)
         self.ema = self.ema_encoder = None
         if ema_decay is not None:
             self.ema = _copy_state(unet)
@@ -135,9 +169,15 @@ class DiffusionTrainer:
         return state
 
     def save(self) -> Optional[str]:
+        """Rank 0 writes the checkpoint; every rank waits for it and gets its path."""
         if self.ckpt is None:
             return None
-        return self.ckpt.save(self.state(), self.step, self.epoch)
+        if rank() == 0:
+            path = self.ckpt.save(self.state(), self.step, self.epoch)
+        else:
+            path = self.ckpt.path_for(self.step, self.epoch)
+        barrier()
+        return path
 
     def resume(self, path: str) -> None:
         """Restore params, optimizer state, EMA, step and epoch."""
@@ -194,7 +234,7 @@ class DiffusionTrainer:
         _seed_default_generator(self.device, step_seed(self.seed, self.step, 1))
         self.optimizer.zero_grad(set_to_none=True)
         with annotate("loss"):
-            loss = self.model.loss(b, self.schedule_train, generator=self._generator, train=True)
+            loss = self._loss(b, self._generator)
         with annotate("backward"):
             loss.backward()
         with annotate("optimizer"):
@@ -226,7 +266,8 @@ class DiffusionTrainer:
     @torch.no_grad()
     def sample_batch(self, batch: dict, use_ema: bool = False) -> torch.Tensor:
         """Super-resolve a batch with the trainer's sampler settings, through a
-        copy of the model loaded with the current weights (or the EMA)."""
+        copy of the model loaded with the current weights (or the EMA). The
+        batch is this rank's rows: the chain draws over the global batch."""
         val = self._val_model
         if val is None:
             val = self._val_model = copy.deepcopy(self.model)
@@ -260,7 +301,7 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
     With `train.profile_trace_dir`, steps [profile_start, profile_start +
     profile_steps) are traced there (defaults 10 and 5). Returns
     {"losses": [(step, loss)], "val": [(step, metrics)], "steps_per_sec",
-    "trace": the trace file or None}.
+    "trace": the trace file or None}; the losses are the ranks' mean.
     """
     logger = logger or logging.getLogger("base")
     tcfg = opt["train"]
@@ -285,7 +326,7 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
     def flush_losses() -> None:
         if not pending:
             return
-        values = torch.stack([v for _, v in pending]).cpu().tolist()
+        values = mean_across(torch.stack([v for _, v in pending])).cpu().tolist()
         for (step, _), v in zip(pending, values):
             losses.append((step, v))
             train_metrics.update({"l_pix": v})
@@ -302,7 +343,7 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
         logger.info(f"Profiler trace to step {last} written to {trace_path}.")
 
     device_cache = None
-    if tcfg.get("device_data_cache"):
+    if tcfg.get("device_data_cache") and world_size() == 1:
         device_cache = DeviceDataset(data_handler, trainer.device, "train")
         logger.info(f"Device data cache: {device_cache.nbytes / 1e6:.0f} MB "
                     f"({len(device_cache)} fields) resident on {trainer.device}.")
@@ -374,7 +415,9 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
 def run_validation(opt: dict, data_handler, trainer: DiffusionTrainer,
                    logger: Optional[logging.Logger] = None, max_batches: Optional[int] = None,
                    use_ema: bool = False) -> dict:
-    """Sample, inverse-transform to Kelvin, and stream the metrics."""
+    """Sample, inverse-transform to Kelvin, and stream the metrics. Each rank
+    samples its rows of a batch; SR, HR and months are gathered, so every
+    rank computes the metrics of the global batches."""
     logger = logger or logging.getLogger("val")
     val_metrics = ValidationMetrics(create_metric_dict())
     t0 = time.time()
@@ -382,8 +425,10 @@ def run_validation(opt: dict, data_handler, trainer: DiffusionTrainer,
         if max_batches is not None and i >= max_batches:
             break
         sr = trainer.sample_batch(batch, use_ema=use_ema)
-        images = {"SR": sr.cpu().numpy(), "HR": np.asarray(batch["HR"])}
-        inv = data_handler.inverse_transform(images, batch["months"])
+        hr, months = (torch.as_tensor(np.asarray(batch[k])) for k in ("HR", "months"))
+        sr, hr, months = (all_gather_rows(t) for t in (sr, hr, months))
+        images = {"SR": sr.cpu().numpy(), "HR": hr.numpy()}
+        inv = data_handler.inverse_transform(images, months.numpy())
         val_metrics.update(inv["HR"], inv["SR"])
     val_time = time.time() - t0
     metrics = val_metrics.compute_metrics()
