@@ -2,13 +2,14 @@
 """Drive the PyTorch port's sampling, training and pretraining paths of
 every residual architecture on one CUDA card and check them.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-14
+    python3 chip_smoke.py                  # the smoke run, phases 1-15
     python3 chip_smoke.py --profile        # phases 1-2, then the UNet profile
     python3 chip_smoke.py --train-kernels  # phases 1-2, the shapes, the bf16 step's kernels
     python3 chip_smoke.py --stress N       # phases 1-6, then steps 7 and 10 N times each
     python3 chip_smoke.py --bf16-step N    # phases 1-2, then phase 11's step at N draw seeds
     python3 chip_smoke.py --serve          # phases 1-2, phase 3's shapes, phase 6, phase 13
     python3 chip_smoke.py --ddp            # phases 1-2, phase 6, phase 14
+    python3 chip_smoke.py --quality        # phases 1-2, phase 6, phase 15
 
 Phases, one JSON line each (`t_sec`: seconds since the start); any failure
 exits non-zero before the result. Every line, and a failure's traceback,
@@ -201,15 +202,37 @@ with an option), whole:
                 Kelvin metric within 1e-4 relative. Its step time is a
                 correctness run's, not a scaling number: gloo reduces
                 through the host.
-  --profile — instead of 3-14: per dtype, one full-width UNet call by host
+ 15. quality  — the evaluation path on phase 6's checkpoint. (a) the
+                checkpoint in the reference's `_gen.pth` layout
+                (`denoise_fn.` + the UNet, the train schedule's twelve
+                buffers) through `convert_torch_checkpoint.main` on the card:
+                the UNet bit for bit, counters (20, epoch), a fresh Adam
+                state. (b) `quality_e2e.main` in this process at full width
+                (phydiff, 128x256) on a 7-day tree: 40 steps at batch 4
+                (phase 6's shapes, whose cuDNN algorithms are timed), EMA 0.9
+                from step 20, then the bicubic row and DDIM-50 and DPM-25
+                rows, noclip and noclip-ema, on one val batch of 4: losses
+                finite; K1, K2, K3 and its backward launched in the training,
+                K1 and K3 exactly (UNet calls) x (their calls per UNet call,
+                phase 3) in each row, no plain version; every row label with
+                finite metrics; the bicubic row within 1e-5 relative of the
+                same bicubic_metrics on the CPU; the dpm-25-noclip row again
+                inside `reference_ops()` on the same weights and noise: the
+                residual fields (SR minus bicubic) within 1e-3 relative RMSE,
+                each Kelvin metric within 1e-3 relative (MR, a signed mean
+                near 0 K, relative to max(|MR|, RMSE)). (c) `quality_e2e.main
+                --reuse-checkpoint` of (a)'s converted checkpoint and of phase
+                6's own, DPM-25 noclip: the fields bit for bit, the metrics
+                equal.
+  --profile — instead of 3-15: per dtype, one full-width UNet call by host
                 clock and by torch.profiler's device time per kernel, the card's
                 idle share, and one DDIM-50 generate_sr (see profile_unet).
-  --train-kernels — instead of 3-14: per batch 4 and 16, bf16, K1 with its
+  --train-kernels — instead of 3-15: per batch 4 and 16, bf16, K1 with its
                 row LSE, K2, K3 with its statistics and K3's backward per
                 phydiff training step, with plain and library times and the
                 bound (see train_kernel_table); then a bf16 and a float32
                 phydiff step profiled (profile_train_steps).
-  --stress N — instead of 7-14, after phases 1-6 as in the smoke run:
+  --stress N — instead of 7-15, after phases 1-6 as in the smoke run:
                 phase 7's and phase 10's training steps N times each with
                 the cuDNN settings phase 6 leaves, every kernel
                 launch repeated (bit-identical) and held against its plain
@@ -218,13 +241,15 @@ with an option), whole:
   --serve — phases 1-2, phase 3's shapes and `unet_call` lines, phase 6,
                 then phase 13 (no kernels line).
   --ddp — phases 1-2, phase 6, then phase 14 (no kernels line).
-  --bf16-step N — instead of 3-14: phase 11's bf16 step, kernels against
+  --quality — phases 1-2, phydiff's calls per UNet call (phase 3's hooks),
+                phase 6, then phase 15 (no kernels line).
+  --bf16-step N — instead of 3-15: phase 11's bf16 step, kernels against
                 plain under the same bound, at draw seeds 3 .. N+2 (phase 11
                 takes seed 3), with the cuDNN settings phase 11 meets.
 Then the kernels' summary line, the card's name and power limit, and the
 result line. In the summary line, `launches` counts the kernel's launches in
 the main-path runs, each counted from 0: phase 4, the first run of phase 6,
-phases 8, 9, 11, 12, 13 and 14 (phase 13's loaded artifact and phase 14's
+phases 8, 9, 11, 12, 13, 14 and 15 (phase 13's loaded artifact and phase 14's
 ranks counted in their own processes; `launches_by_phase` splits them; the
 launches that
 hold a kernel against its plain version are not among them); `ms`, `plain_ms`,
@@ -3001,9 +3026,256 @@ def run_ddp(torch, workdir, device, phase6) -> dict:
     return {k: a[k] + b[k] for k in a}
 
 
+# phase 15: the evaluation path on phase 6's checkpoint and a week's tree
+QUALITY_DATES = ["--data-min", "2017-01-01-00", "--data-max", "2017-01-08-00",
+                 "--train-min", "2017-01-01-00", "--train-max", "2017-01-07-00",
+                 "--val-min", "2017-01-07-00", "--val-max", "2017-01-08-00"]
+# batch 4, phase 6's: cuDNN times its algorithms once per shape (phase 6's
+# first step, ~25 s), and a new training batch would time them again (40 s
+# of 72 s on an H100 at batch 8: PERF.md, the evaluation path)
+QUALITY_ARGS = ["--arch", "phydiff", "--batch", str(TRAIN_BATCH), "--val-batches", "1",
+                *QUALITY_DATES]
+
+
+def migrate_phase6(torch, workdir, device, phase6) -> dict:
+    """15(a): phase 6's step-20 checkpoint in the reference's layout
+    (`denoise_fn.` + the UNet, the twelve schedule buffers of the train
+    schedule) as I20_E<epoch>_gen.pth, through
+    `convert_torch_checkpoint.main` on the card: the UNet bit for bit,
+    the counters, a fresh Adam state."""
+    from srewd_tpu_torch import convert_torch_checkpoint
+    from srewd_tpu_torch.configs.config import load_commented_json
+    from srewd_tpu_torch.training.checkpoint import CheckpointManager
+    from srewd_tpu_torch.utils.torch_convert import reference_checkpoint
+
+    step, epoch = CheckpointManager.parse_counters(phase6["checkpoint"])
+    state = CheckpointManager.restore(phase6["checkpoint"], map_location="cpu")
+    opt = load_commented_json(phase6["config"])
+    gen = os.path.join(workdir, "reference", f"I{step}_E{epoch}_gen.pth")
+    os.makedirs(os.path.dirname(gen), exist_ok=True)
+    torch.save(reference_checkpoint("phydiff", state["params"],
+                                    opt["model"]["beta_schedule"]["train"]), gen)
+    t0 = time.perf_counter()
+    path = convert_torch_checkpoint.main(["-c", phase6["config"], "--gen", gen, "--out",
+                                          os.path.join(workdir, "converted"),
+                                          "--device", str(device)])
+    sec = time.perf_counter() - t0
+    conv = CheckpointManager.restore(path, map_location="cpu")
+    differ = [k for k, v in state["params"].items()
+              if k not in conv["params"] or not torch.equal(conv["params"][k], v)]
+    line = {"phase": "quality_migrate", "gen": os.path.relpath(gen, workdir),
+            "checkpoint": os.path.relpath(path, workdir), "sec": sec,
+            "tensors": len(state["params"]), "tensors_differing": differ[:8],
+            "counters": [conv["step"], conv["epoch"]], "adam_state_entries": len(
+                conv["opt_state"]["state"]), "ema": conv.get("ema_params") is not None}
+    emit(line)
+    check(set(conv["params"]) == set(state["params"]) and not differ,
+          f"the migrated UNet differs from phase 6's: {differ[:8]}")
+    check((conv["step"], conv["epoch"]) == (step, epoch) == (20, epoch),
+          f"counters {conv['step']}, {conv['epoch']}, expected 20, {epoch}")
+    check(not conv["opt_state"]["state"], "the migrated checkpoint's Adam state is not fresh")
+    return {"checkpoint": path}
+
+
+@contextlib.contextmanager
+def _recorded_rows(torch):
+    """While open, quality_e2e's `evaluate` and `bicubic_metrics` calls are
+    recorded as main makes them: each row's settings, unrounded metrics, SR
+    fields (through `sample=`, the call it makes by default), launches and
+    plain calls; the bicubic row's data handler and the launches before it
+    (the training's)."""
+    from srewd_tpu_torch import quality_e2e
+
+    seen = {"rows": []}
+    orig_eval, orig_bic = quality_e2e.evaluate, quality_e2e.bicubic_metrics
+
+    def counts():
+        torch.cuda.synchronize()
+        return read_counts()
+
+    def evaluate(trainer, dh, sampler_kwargs, **kw):
+        fields = []
+
+        def sample(batch, fold, use_ema):
+            out = trainer.sample_batch(batch, use_ema=use_ema, fold=fold)
+            fields.append(out.clone())
+            return out
+
+        (k0, p0), t0 = counts(), time.perf_counter()
+        out = orig_eval(trainer, dh, sampler_kwargs, sample=sample, **kw)
+        (k1, p1), sec = counts(), time.perf_counter() - t0
+        seen["trainer"] = trainer
+        seen["rows"].append({"kw": dict(sampler_kwargs), **kw, "metrics": out["metrics"],
+                             "fields": fields, "sec": sec,
+                             "launches": {k: k1[k] - k0[k] for k in k1},
+                             "plain": {k: p1[k] - p0[k] for k in p1}})
+        return out
+
+    def bicubic_metrics(dh, n_batches, device):
+        seen["train_launches"], seen["train_plain"] = counts()
+        seen["dh"], seen["n_batches"] = dh, n_batches
+        seen["bicubic"] = orig_bic(dh, n_batches, device)
+        return seen["bicubic"]
+
+    quality_e2e.evaluate, quality_e2e.bicubic_metrics = evaluate, bicubic_metrics
+    try:
+        yield seen
+    finally:
+        quality_e2e.evaluate, quality_e2e.bicubic_metrics = orig_eval, orig_bic
+
+
+def metric_rel(got: dict, want: dict) -> dict:
+    """Relative difference of each Kelvin metric; MR, a signed mean that can
+    sit near 0 K, relative to max(|MR|, RMSE) (|MR| <= RMSE always)."""
+    return {k: abs(got[k] - v) / max(abs(v), want["RMSE"] if k == "MR" else 0.0, 1e-30)
+            for k, v in want.items()}
+
+
+def _unet_calls(row, schedule) -> int:
+    """UNet calls of a DDIM or DPM row: one per step of its plan (the tau
+    spacing can merge steps), a chain per batch and member."""
+    from srewd_tpu_torch.diffusion.gaussian import chain_plan
+
+    kw = row["kw"]
+    plan = chain_plan(schedule, kw["sampler"], steps=int(kw["ddim_steps"]),
+                      eta=float(kw.get("ddim_eta", 0.0)),
+                      tau_spacing=kw.get("tau_spacing", "linspace"))
+    return plan.n_steps * row["n_batches"] * row["ensemble"]
+
+
+def run_quality(torch, workdir, device, phase6, per_call) -> dict:
+    """Phase 15: the evaluation path. (a) migrate_phase6. (b)
+    `quality_e2e.main` at full width (phydiff, 128x256): 40 steps at batch
+    4, EMA from step 20, then the bicubic, DDIM-50 and DPM-25 rows (noclip,
+    noclip-ema) on one val batch; every loss finite, K1, K2, K3 and its
+    backward launched in the training and K1 and K3 exactly (UNet calls) x
+    (their calls per UNet call) in each row, no plain version; every JAX
+    row label with finite metrics; the bicubic row within 1e-5 relative of
+    bicubic_metrics on the CPU; the dpm-25-noclip row recomputed inside
+    reference_ops() on the same weights and noise: the residual fields
+    within 1e-3 relative RMSE, each Kelvin metric within 1e-3 relative
+    (`metric_rel`).
+    (c) `--reuse-checkpoint` of (a)'s converted and of phase 6's own
+    checkpoint, DPM-25 noclip: the two rows' fields bit for bit and their
+    metrics equal. `per_call`: K1 and K3 calls per phydiff UNet call."""
+    from srewd_tpu_torch import quality_e2e
+    from srewd_tpu_torch.ops import reference_ops
+    from srewd_tpu_torch.ops.resize import bicubic_up4
+
+    t_start = time.perf_counter()
+    migrated = migrate_phase6(torch, workdir, device, phase6)
+    args = [*QUALITY_ARGS, "--device", str(device)]
+    qwork = os.path.join(workdir, "quality")
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with _recorded_rows(torch) as seen:
+        out = quality_e2e.main(
+            [*args, "--iters", "40", "--samplers", "ddim,dpm", "--variants", "noclip,ema",
+             "--ema-start", "20", "--ema-decay", "0.9", "--workdir", qwork,
+             "--out", os.path.join(qwork, "QUALITY_smoke.json")])
+    sec_main = time.perf_counter() - t0
+    launches, plain = read_counts()
+    labels = ["ddim-50-noclip", "ddim-50-noclip-ema", f"dpm-{DPM_STEPS}-noclip",
+              f"dpm-{DPM_STEPS}-noclip-ema"]
+    rows = dict(zip(labels, seen["rows"]))
+    trainer, dh = seen["trainer"], seen["dh"]
+    train_launches = seen["train_launches"]
+    bic_cpu = quality_e2e.bicubic_metrics(dh, seen["n_batches"], "cpu")
+    bic_rel = metric_rel(seen["bicubic"], bic_cpu)
+    row_counts = {}
+    for label, r in rows.items():
+        calls = _unet_calls(r, trainer.schedule_val)
+        row_counts[label] = {"unet_calls": calls, "launches": r["launches"],
+                             "plain": r["plain"], "sec": r["sec"]}
+        check(r["launches"]["flash_attention"] == calls * per_call["attention_calls"]
+              and r["launches"]["gn_swish"] == calls * per_call["gn_calls"],
+              f"{label}: K1 {r['launches']['flash_attention']} and K3 "
+              f"{r['launches']['gn_swish']} launches for {calls} UNet calls of "
+              f"{per_call['attention_calls']} / {per_call['gn_calls']}")
+        check(r["launches"]["flash_attention_backward"] == 0
+              and r["launches"]["gn_swish_backward"] == 0,
+              f"{label}: a backward kernel ran while sampling: {r['launches']}")
+        check(sum(r["plain"].values()) == 0, f"{label}: the plain versions ran: {r['plain']}")
+
+    # the dpm-25-noclip row again, inside reference_ops(), same weights and seed
+    dpm = rows[f"dpm-{DPM_STEPS}-noclip"]
+    plain_fields = []
+
+    def plain_sample(batch, fold, use_ema):
+        sr = trainer.sample_batch(batch, use_ema=use_ema, fold=fold)
+        plain_fields.append(sr)
+        return sr
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with reference_ops():
+        ref = quality_e2e.evaluate(trainer, dh, dpm["kw"], use_ema=False, n_batches=1,
+                                   sample=plain_sample)
+    torch.cuda.synchronize()
+    sec_plain = time.perf_counter() - t0
+    launches_plain_side, plain_side = read_counts()
+    batch = next(iter(dh.val_batches()))
+    cond = bicubic_up4(torch.as_tensor(batch["LR"]).to(device))
+    field_err = rel_rmse(dpm["fields"][0] - cond, plain_fields[0] - cond)
+    metrics_vs_plain = metric_rel(dpm["metrics"], ref["metrics"])
+
+    # (c) the converted checkpoint and phase 6's own, scored the same way
+    scored = {}
+    reset_counts()
+    for name, path in (("converted", migrated["checkpoint"]), ("phase6", phase6["checkpoint"])):
+        with _recorded_rows(torch) as seen_c:
+            res = quality_e2e.main([*args, "--samplers", "dpm", "--variants", "noclip",
+                                    "--reuse-checkpoint", path, "--workdir", qwork,
+                                    "--out", os.path.join(qwork, f"QUALITY_{name}.json")])
+        scored[name] = (res["samplers"][f"dpm-{DPM_STEPS}-noclip"], seen_c["rows"][0])
+    launches_c, plain_c = read_counts()
+    (row_conv, rec_conv), (row_own, rec_own) = scored["converted"], scored["phase6"]
+    same_fields = all(torch.equal(a, b) for a, b in zip(rec_conv["fields"], rec_own["fields"]))
+
+    total = {k: launches[k] + launches_c[k] for k in launches}
+    line = {"phase": "quality", "sec_main": sec_main, "train_wall_sec": out["train_wall_sec"],
+            "train_steps_per_sec": out["train_steps_per_sec"],
+            "train_loss_mean100": out["train_loss_mean100"], "train_launches": train_launches,
+            "rows": row_counts, "samplers": out["samplers"], "bicubic": out["bicubic"],
+            "rmse_vs_bicubic": out["rmse_vs_bicubic"], "bicubic_rel_vs_cpu": bic_rel,
+            "plain_side": {"sec": sec_plain, "launches": launches_plain_side,
+                           "plain_calls": plain_side},
+            "rel_rmse_residual_kernels_vs_plain": field_err, "bound": 1e-3,
+            "metric_rel_kernels_vs_plain": metrics_vs_plain,
+            "reuse": {"converted": row_conv, "phase6": row_own, "fields_equal": same_fields},
+            "launches": total, "plain_calls": {k: plain[k] + plain_c[k] for k in plain},
+            "sec": time.perf_counter() - t_start}
+    emit(line)
+    check(all(math.isfinite(v) for v in out["train_loss_mean100"]) and out["train_loss_mean100"],
+          f"training losses not finite: {out['train_loss_mean100']}")
+    check(all(train_launches[k] > 0 for k in train_launches),
+          f"a kernel was not launched in the training: {train_launches}")
+    check(sum(seen["train_plain"].values()) == 0,
+          f"the plain versions ran in the training: {seen['train_plain']}")
+    check(list(out["samplers"]) == labels, f"rows {list(out['samplers'])}, expected {labels}")
+    check(set(out["rmse_vs_bicubic"]) == set(labels) and all(
+        math.isfinite(v) for v in out["rmse_vs_bicubic"].values()),
+        f"rmse_vs_bicubic: {out['rmse_vs_bicubic']}")
+    check(all(math.isfinite(v) for r in (out["bicubic"], *out["samplers"].values())
+              for v in r["metrics"].values()), "a row's metrics are not finite")
+    check(max(bic_rel.values()) <= 1e-5, f"bicubic row vs the CPU's: {bic_rel}")
+    check(sum(launches_plain_side.values()) == 0 and plain_side["attention_reference"] > 0
+          and plain_side["gn_swish_reference"] > 0,
+          f"the plain side launched {launches_plain_side}, called {plain_side}")
+    check(field_err <= 1e-3, f"dpm-{DPM_STEPS}-noclip fields, kernels vs plain: {field_err}")
+    check(max(metrics_vs_plain.values()) <= 1e-3,
+          f"dpm-{DPM_STEPS}-noclip metrics: {metrics_vs_plain}")
+    check(same_fields and row_conv["metrics"] == row_own["metrics"],
+          f"the converted checkpoint scores {row_conv}, phase 6's {row_own}")
+    check(sum(plain_c.values()) == 0, f"the plain versions ran in (c): {plain_c}")
+    return total
+
+
 def kernel_entry(name, route, source, replaces, tot, launches_by_phase) -> dict:
     """The kernels line's entry: `launches` sums the main-path runs (phases
-    4, 6, 8, 9, 11, 12, 13 and 14, each counted from 0), `launches_by_phase`
+    4, 6, 8, 9, 11, 12, 13, 14 and 15, each counted from 0), `launches_by_phase`
     splits them."""
     entry = {"name": name, "route": route, "source": source, "replaces": replaces,
              "launches": sum(launches_by_phase.values()),
@@ -3067,10 +3339,12 @@ def main(argv: list) -> int:
     stress = argv[1] if len(argv) == 2 and argv[0] == "--stress" else None
     bf16_steps = argv[1] if len(argv) == 2 and argv[0] == "--bf16-step" else None
     worker = argv[1] if len(argv) >= 3 and argv[0] == "--worker" else None
-    if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"], ["--ddp"]) and not (
+    if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"], ["--ddp"],
+                    ["--quality"]) and not (
             (stress or bf16_steps or "").isdigit()) and worker not in ("train-main", "gloo-step"):
         print(f"chip_smoke: unknown arguments {argv}; the options are --profile, "
-              "--train-kernels, --serve, --ddp, --stress N and --bf16-step N", file=sys.stderr)
+              "--train-kernels, --serve, --ddp, --quality, --stress N and --bf16-step N",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -3131,6 +3405,15 @@ def main(argv: list) -> int:
             run_ddp(torch, workdir, device, phase6)
         say(smi)
         return 0
+    if argv == ["--quality"]:
+        a, n = main_path_shapes(torch, full_width_model(torch, "phydiff", device), device)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
+            phase6 = run_train_slice(torch, workdir, device)
+            run_quality(torch, workdir, device, phase6,
+                        {"attention_calls": sum(a.values()), "gn_calls": sum(n.values())})
+        say(smi)
+        return 0
 
     attn_shapes, gn_shapes, per_arch = arch_shapes(torch, device)
     emit({"phase": "shapes", "archs": list(per_arch),
@@ -3175,11 +3458,13 @@ def main(argv: list) -> int:
         launches_serve = run_serving(torch, workdir, device, phase6, per_arch, attn_shapes,
                                      gn_shapes)
         launches_ddp = run_ddp(torch, workdir, device, phase6)
+        torch.cuda.empty_cache()
+        launches_quality = run_quality(torch, workdir, device, phase6, per_arch["phydiff"])
 
     by_phase = {"sample_phydiff": launches_sample, "train_phydiff": phase6["launches"],
                 "pretrain": pre["launches"], "archs": launches_archs,
                 "train_bf16": launches_bf16, "bench": launches_bench, "serve": launches_serve,
-                "ddp": launches_ddp}
+                "ddp": launches_ddp, "quality": launches_quality}
 
     def entry(name, source, replaces):
         return kernel_entry(name, "cuda", source, replaces, kernels[name],

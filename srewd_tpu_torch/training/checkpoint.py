@@ -6,7 +6,8 @@ directories, holding `state.pt`: the UNet state_dict, the optimizer's
 state_dict, the EMA weights (when on), step and epoch. `latest()` resolves
 the newest by step, and `resume_state` paths of reference-style configs
 (`.../checkpoint/I{iter}_E{epoch}`) resolve directly; `keep` rotates old
-checkpoints out.
+checkpoints out. `parse_counters` reads (iter, epoch) off such a name, and
+off the reference's `I{iter}_E{epoch}_gen.pth` files.
 """
 
 from __future__ import annotations
@@ -67,3 +68,16 @@ class CheckpointManager:
     def latest(self) -> str | None:
         cps = self.all_checkpoints()
         return cps[-1][2] if cps else None
+
+    @staticmethod
+    def parse_counters(path: str) -> tuple[int, int]:
+        """(iter, epoch) of a checkpoint directory `I{iter}_E{epoch}` or a
+        reference file `I{iter}_E{epoch}_gen.pth` (`_opt.pth`). Raises on a
+        name without the counters (the JAX package's returns (0, 0))."""
+        name = os.path.basename(os.path.normpath(path))
+        for suffix in ("_gen.pth", "_opt.pth"):
+            name = name.removesuffix(suffix)
+        m = _CKPT_RE.match(name)
+        if not m:
+            raise ValueError(f"{path}: the name carries no I{{iter}}_E{{epoch}} counters")
+        return int(m.group(1)), int(m.group(2))

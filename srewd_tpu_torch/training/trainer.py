@@ -66,6 +66,7 @@ from ..diffusion.schedule import Schedule
 from ..models.factory import DiffusionModel
 from ..parallel import all_gather_rows, barrier, data_parallel, mean_across, rank, world_size
 from ..utils.profiling import StepTimer, annotate, trace
+from ..utils.seeding import member_seed
 from .checkpoint import CheckpointManager
 from .metrics import TrainMetrics, ValidationMetrics, create_metric_dict
 from .optimizers import clip_by_global_norm_, get_optimizer, norm_parameters
@@ -196,6 +197,14 @@ class DiffusionTrainer:
         self.step = int(state["step"])
         self.epoch = int(state["epoch"])
 
+    def reset_ema(self) -> None:
+        """Where the EMA is on: set it to the current weights, UNet and encoder
+        (the state of weights loaded from elsewhere)."""
+        if self.ema is not None:
+            self.ema = _copy_state(self.model.unet)
+        if self.ema_encoder is not None:
+            self.ema_encoder = _copy_state(self.model.encoder)
+
     def load_params_tolerant(self, path: str) -> None:
         """Params only, non-strict (the finetune_norm load): tensors present
         in both take the checkpoint's values, the rest keep their init;
@@ -209,8 +218,7 @@ class DiffusionTrainer:
                                  f"{tuple(own[k].shape)}")
         self.model.unet.load_state_dict({k: v for k, v in loaded.items() if k in own},
                                         strict=False)
-        if self.ema is not None:
-            self.ema = _copy_state(self.model.unet)
+        self.reset_ema()
 
     # ------------------------------------------------------------------ steps
     def _device_batch(self, batch: dict) -> dict:
@@ -264,10 +272,16 @@ class DiffusionTrainer:
             torch._foreach_add_(ema, [params[k] for k in keys], alpha=1.0 - self.ema_decay)
 
     @torch.no_grad()
-    def sample_batch(self, batch: dict, use_ema: bool = False) -> torch.Tensor:
+    def sample_batch(self, batch: dict, use_ema: bool = False, fold: int = 0) -> torch.Tensor:
         """Super-resolve a batch with the trainer's sampler settings, through a
         copy of the model loaded with the current weights (or the EMA). The
-        batch is this rank's rows: the chain draws over the global batch."""
+        batch is this rank's rows: the chain draws over the global batch.
+
+        The chain's noise is a function of (seed, step, fold): `fold` 0 is
+        the validation stream, every other fold a stream of its own
+        (`member_seed` over it), so the batches of one evaluation, or the
+        members of an ensemble, at one step draw different noise, as the
+        JAX trainer's `fold_in(key, fold)`."""
         val = self._val_model
         if val is None:
             val = self._val_model = copy.deepcopy(self.model)
@@ -282,7 +296,7 @@ class DiffusionTrainer:
                 self.ema_encoder if ema else self.model.encoder.state_dict(), strict=True)
         b = self._device_batch(batch)
         gen = torch.Generator(device=self.device).manual_seed(
-            step_seed(self.seed, _VAL_STREAM + self.step))
+            member_seed(step_seed(self.seed, _VAL_STREAM + self.step), fold))
         return val.generate_sr({"LR": b["LR"]}, self.schedule_val, generator=gen,
                                **self.sampler_kwargs)
 
@@ -314,6 +328,9 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
     profile_dir = tcfg.get("profile_trace_dir")
     profile_start = int(tcfg.get("profile_start", 10))
     profile_steps = int(tcfg.get("profile_steps", 5))
+    if tcfg.get("save_visualizations"):
+        logger.info("train.save_visualizations is set; the port renders no PNG yet "
+                    "(ROADMAP.md Queue 1 item 10), so the run writes none.")
 
     train_metrics = TrainMetrics()
     timer = StepTimer()
