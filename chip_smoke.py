@@ -2,7 +2,7 @@
 """Drive the PyTorch port's sampling, training and pretraining paths of
 every residual architecture on one CUDA card and check them.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-15
+    python3 chip_smoke.py                  # the smoke run, phases 1-16
     python3 chip_smoke.py --profile        # phases 1-2, then the UNet profile
     python3 chip_smoke.py --train-kernels  # phases 1-2, the shapes, the bf16 step's kernels
     python3 chip_smoke.py --stress N       # phases 1-6, then steps 7 and 10 N times each
@@ -10,6 +10,7 @@ every residual architecture on one CUDA card and check them.
     python3 chip_smoke.py --serve          # phases 1-2, phase 3's shapes, phase 6, phase 13
     python3 chip_smoke.py --ddp            # phases 1-2, phase 6, phase 14
     python3 chip_smoke.py --quality        # phases 1-2, phase 6, phase 15
+    python3 chip_smoke.py --extras         # phases 1-2, 6, 8 and 16
 
 Phases, one JSON line each (`t_sec`: seconds since the start); any failure
 exits non-zero before the result. Every line, and a failure's traceback,
@@ -224,15 +225,43 @@ with an option), whole:
                 --reuse-checkpoint` of (a)'s converted checkpoint and of phase
                 6's own, DPM-25 noclip: the fields bit for bit, the metrics
                 equal.
-  --profile — instead of 3-15: per dtype, one full-width UNet call by host
+  16. extras  — the rest of the port on phase 6's checkpoint and config and
+                phase 8's SimpleCNN (phydiff, 128x256, float32). (a) One Lamb
+                and one Lion step on the card from a fixed set of gradients
+                (one leaf's exactly zero, one parameter zero) at lr 1e-2
+                against the same step written out in float64 on the card,
+                leaf by leaf: |p_card - p_f64| <= 2 float32 ulps of max|p| +
+                1e-5 max|update|; the
+                optimizer.step() ms of Adam, Lamb and Lion on the UNet's
+                leaves; then `train.main` resumed from phase 6's weights (a
+                fresh optimizer state in the checkpoint) with optimizer.type
+                lamb, then lion, 5 steps each at batch 4: losses finite, K1,
+                K2, K3 and its backward exactly (10, 10, 65, 65) per step, no
+                plain version, steps/s. (b) `sample.main -d 2017-01-02-05 -i SR
+                HR INTERPOLATED DELTA AE AE_INTER -cm heat_vibrant --sampler
+                dpm --ddim-steps 25` on the checkpoint, then the same call
+                inside reference_ops() (same generator): the SR residual (SR -
+                INF, Kelvin) within 1e-3 relative RMSE, K1 and K3 exactly (UNet
+                calls) x (10, 65), every PNG decoding to 128 rows with a
+                128x256 panel, the SR panel equal to colormaps.apply of the
+                returned field at 220-315 K; the sampling and the render
+                seconds. (c) the 7 plates phase 6's validation wrote
+                (results/<epoch>/<epoch>_20_1_*.png), deleted, then written
+                again by `train.main -p val` on the checkpoint (SR at 220-315
+                K), and the SimpleCNN's `save_results` at max_batches=2
+                (result_0.png, result_1.png: INF, SR, HR panels). (d)
+                `WandbLogger(opt).enabled` of phase 6's config (written
+                without the shipped config's `wandb` section, as every config
+                of this script) is false, and no phase has imported wandb.
+  --profile — instead of 3-16: per dtype, one full-width UNet call by host
                 clock and by torch.profiler's device time per kernel, the card's
                 idle share, and one DDIM-50 generate_sr (see profile_unet).
-  --train-kernels — instead of 3-15: per batch 4 and 16, bf16, K1 with its
+  --train-kernels — instead of 3-16: per batch 4 and 16, bf16, K1 with its
                 row LSE, K2, K3 with its statistics and K3's backward per
                 phydiff training step, with plain and library times and the
                 bound (see train_kernel_table); then a bf16 and a float32
                 phydiff step profiled (profile_train_steps).
-  --stress N — instead of 7-15, after phases 1-6 as in the smoke run:
+  --stress N — instead of 7-16, after phases 1-6 as in the smoke run:
                 phase 7's and phase 10's training steps N times each with
                 the cuDNN settings phase 6 leaves, every kernel
                 launch repeated (bit-identical) and held against its plain
@@ -243,13 +272,15 @@ with an option), whole:
   --ddp — phases 1-2, phase 6, then phase 14 (no kernels line).
   --quality — phases 1-2, phydiff's calls per UNet call (phase 3's hooks),
                 phase 6, then phase 15 (no kernels line).
-  --bf16-step N — instead of 3-15: phase 11's bf16 step, kernels against
+  --extras — phases 1-2, phydiff's calls per UNet call (phase 3's hooks),
+                phases 6 and 8, then phase 16 (no kernels line).
+  --bf16-step N — instead of 3-16: phase 11's bf16 step, kernels against
                 plain under the same bound, at draw seeds 3 .. N+2 (phase 11
                 takes seed 3), with the cuDNN settings phase 11 meets.
 Then the kernels' summary line, the card's name and power limit, and the
 result line. In the summary line, `launches` counts the kernel's launches in
 the main-path runs, each counted from 0: phase 4, the first run of phase 6,
-phases 8, 9, 11, 12, 13, 14 and 15 (phase 13's loaded artifact and phase 14's
+phases 8, 9, 11, 12, 13, 14, 15 and 16 (phase 13's loaded artifact and phase 14's
 ranks counted in their own processes; `launches_by_phase` splits them; the
 launches that
 hold a kernel against its plain version are not among them); `ms`, `plain_ms`,
@@ -828,9 +859,7 @@ def run_slice(torch, workdir):
     with open(CONFIG) as f:
         cfg = json.load(f)
     cfg["data"].update(data_settings(workdir))
-    cfg_path = os.path.join(workdir, "phydiff_ddim50_smoke.json")
-    with open(cfg_path, "w") as f:
-        json.dump(cfg, f)
+    cfg_path = _write_config(workdir, "phydiff_ddim50_smoke", cfg)
     out = os.path.join(workdir, "out")
 
     reset_counts()
@@ -998,10 +1027,7 @@ def train_config(workdir) -> str:
     cfg["train"].update(n_iter=20, print_freq=5, save_checkpoint_freq=10, val_freq=20,
                         full_val_freq=1000)
     cfg["model"]["diffusion"].update(sampler="ddim", ddim_steps=10)
-    path = os.path.join(workdir, "phydiff_train_smoke.json")
-    with open(path, "w") as f:
-        json.dump(cfg, f)
-    return path
+    return _write_config(workdir, "phydiff_train_smoke", cfg)
 
 
 def check_step(torch, cfg_path, device) -> dict:
@@ -1091,9 +1117,7 @@ def run_train_slice(torch, workdir, device) -> dict:
     with open(cfg_path) as f:
         cfg = json.load(f)
     cfg["path"]["resume_state"] = ckpts[0]
-    resume_path = os.path.join(workdir, "phydiff_train_resume.json")
-    with open(resume_path, "w") as f:
-        json.dump(cfg, f)
+    resume_path = _write_config(workdir, "phydiff_train_resume", cfg)
     reset_counts()
     second = train.main(["-c", resume_path, "--device", str(device)])
     launches_resume, plain_resume = read_counts()
@@ -1259,9 +1283,12 @@ def arch_data_settings(workdir) -> dict:
 
 
 def _write_config(workdir, name, cfg) -> str:
+    """`cfg` as <workdir>/<name>.json without its `wandb` section, which
+    would make train.py and pretrain.py start wandb (utils/wandb_logger.py),
+    whose init reaches the network."""
     path = os.path.join(workdir, f"{name}.json")
     with open(path, "w") as f:
-        json.dump(cfg, f)
+        json.dump({k: v for k, v in cfg.items() if k != "wandb"}, f)
     return path
 
 
@@ -3273,10 +3300,309 @@ def run_quality(torch, workdir, device, phase6, per_call) -> dict:
     return total
 
 
+# ------------------------------------------------------------------ phase 16
+EXTRAS_DATE = "2017-01-02-05"  # an hour of phase 6's validation day
+EXTRAS_TYPES = ["SR", "HR", "INTERPOLATED", "DELTA", "AE", "AE_INTER"]
+
+
+def _optimizer_checkpoint(torch, workdir, phase6, name) -> str:
+    """Phase 6's step-20 checkpoint with a fresh `name` optimizer state in
+    place of Adam's (the weights, EMA and counters kept), for a train.main
+    resumed with optimizer.type `name`."""
+    from srewd_tpu_torch.training.checkpoint import CheckpointManager
+    from srewd_tpu_torch.training.optimizers import get_optimizer
+
+    state = dict(CheckpointManager.restore(phase6["checkpoint"], map_location="cpu"))
+    n = len(state["opt_state"]["param_groups"][0]["params"])
+    fresh = get_optimizer(name, [torch.zeros(1, requires_grad=True) for _ in range(n)], 1e-4)
+    state["opt_state"] = fresh.state_dict()
+    return CheckpointManager(os.path.join(workdir, f"ckpt_{name}")).save(
+        state, state["step"], state["epoch"])
+
+
+# 16(a)'s step: at lr 1e-2 Lion's weight decay, lr * 1e-3 * |p|, is ~80
+# float32 ulps of |p|, so a step that drops or misplaces it fails the bound
+STEP_LR = 1e-2
+
+
+def _f64_update(torch, name, p, g) -> "torch.Tensor":
+    """optax's first step of `name` at its defaults and lr STEP_LR on one
+    leaf, in float64, written out leaf by leaf as optax.lamb / optax.lion
+    define it (not through the port's classes)."""
+    lr = STEP_LR
+    if name == "lion":
+        return p - lr * (torch.sign(0.1 * g) + 1e-3 * p)
+    mu_hat, nu_hat = 0.1 * g / 0.1, 0.001 * g * g / 0.001
+    u = mu_hat / (nu_hat.sqrt() + 1e-6)
+    pn, un = p.norm(), u.norm()
+    ratio = 1.0 if pn == 0 or un == 0 else pn / un
+    return p - lr * ratio * u
+
+
+def compare_optimizer_step(torch, device, phase6) -> dict:
+    """One Lamb and one Lion step (lr STEP_LR) on the card on phase 6's UNet
+    weights, from a fixed set of gradients (seeded normal draws; one leaf's
+    gradient exactly zero, one parameter set to zero), against the same
+    step in float64, also on the card, leaf by leaf: |p_card - p_f64| <= 2
+    float32 ulps of max|p| + 1e-5 max|p_f64 - p_old| (the card's new
+    parameter is rounded to float32 once; the trust ratio's float32 norms
+    add ~1e-6 relative). Then the optimizer.step() ms of Adam, Lamb and Lion
+    at lr 1e-4 on the same leaves (CUDA events, median of 10, after 2
+    warm-up steps)."""
+    from srewd_tpu_torch.training.checkpoint import CheckpointManager
+    from srewd_tpu_torch.training.optimizers import get_optimizer
+
+    sd = CheckpointManager.restore(phase6["checkpoint"], map_location=device)["params"]
+    names = [k for k, v in sd.items() if v.is_floating_point()]
+    g = torch.Generator(device=device).manual_seed(16)
+    grads = {k: torch.randn(sd[k].shape, generator=g, device=device) * 1e-3 for k in names}
+    zero_grad, zero_param = names[1], names[-1]
+    grads[zero_grad].zero_()
+    out = {}
+    for name in ("lamb", "lion"):
+        params = {k: sd[k].float().clone() for k in names}
+        params[zero_param].zero_()
+        card = [params[k].clone().requires_grad_() for k in names]
+        for p, k in zip(card, names):
+            p.grad = grads[k]
+        get_optimizer(name, card, STEP_LR).step()
+        worst, worst_leaf = 0.0, None
+        for p, k in zip(card, names):
+            old = params[k].double()
+            want = _f64_update(torch, name, old, grads[k].double())
+            err = (p.detach().double() - want).abs().max().item()
+            peak = max(want.abs().max().item(), 1e-30)
+            ulp = 2.0 ** (math.floor(math.log2(peak)) - 23)
+            bound_leaf = 2 * ulp + 1e-5 * (want - old).abs().max().item()
+            check(err <= bound_leaf, f"{name}: leaf {k} differs from float64 by {err} "
+                                     f"(bound {bound_leaf})")
+            if err / bound_leaf > worst:
+                worst, worst_leaf = err / bound_leaf, k
+        out[name] = {"leaves": len(names), "worst_share_of_bound": worst,
+                     "worst_leaf": worst_leaf}
+
+    leaves = [sd[k].float().clone().requires_grad_() for k in names]
+    for p, k in zip(leaves, names):
+        p.grad = grads[k]
+    for name in ("adam", "lamb", "lion"):
+        opt = get_optimizer(name, leaves, 1e-4)
+        out[name] = {**out.get(name, {}), "optimizer_step_ms": cuda_ms(torch, opt.step, 10)}
+        del opt
+    return out
+
+
+def extras_train(torch, workdir, device, phase6, per_call, name) -> dict:
+    """Phase 16(a), one optimizer: train.main resumed from phase 6's weights
+    with optimizer.type `name` for 5 steps at batch 4 (no validation):
+    losses finite, K1, K2, K3 and its backward exactly (10, 10, 65, 65) a
+    step, no plain version; steps/s on the trainer it built."""
+    from srewd_tpu_torch import train
+    from srewd_tpu_torch.training.trainer import DiffusionTrainer
+
+    with open(phase6["config"]) as f:
+        cfg = json.load(f)
+    cfg["path"]["resume_state"] = _optimizer_checkpoint(torch, workdir, phase6, name)
+    cfg["train"]["optimizer"]["type"] = name
+    cfg["train"].update(n_iter=25, val_freq=1000, save_checkpoint_freq=1000)
+    path = _write_config(workdir, f"extras_{name}", cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _tap(torch, DiffusionTrainer, "train_on_batch_async") as tap:
+        run = train.main(["-c", path, "--device", str(device)])
+    sec = time.perf_counter() - t0
+    launches, plain = read_counts()
+    trainer = tap["obj"]
+    speed = _steps_per_sec(torch, trainer.train_on_batch_async, tap["calls"])
+    losses = [v for _, v in run["losses"]]
+    kind = type(trainer.optimizer).__name__
+    del tap, trainer
+    torch.cuda.empty_cache()
+    want = {"flash_attention": 5 * per_call["attention_calls"],
+            "flash_attention_backward": 5 * per_call["attention_calls"],
+            "gn_swish": 5 * per_call["gn_calls"], "gn_swish_backward": 5 * per_call["gn_calls"]}
+    check(kind == name.capitalize(), f"train.main built a {kind}, not a {name}")
+    check([s for s, _ in run["losses"]] == [21, 22, 23, 24, 25],
+          f"{name}: steps logged {[s for s, _ in run['losses']]}")
+    check(all(math.isfinite(v) for v in losses), f"{name}: a loss is not finite: {losses}")
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    check(sum(plain.values()) == 0, f"{name}: the plain versions ran: {plain}")
+    return {"optimizer": kind, "losses": losses, "sec_train_main": sec, **speed,
+            "launches": launches, "plain_calls": plain}
+
+
+def extras_sample(torch, workdir, device, phase6, per_call) -> dict:
+    """Phase 16(b): `sample.main -d` on phase 6's checkpoint, DPM-25, every
+    reference image type, with the kernels and again inside reference_ops()
+    on the same generator: the SR residual (SR - INF, Kelvin) within 1e-3
+    relative RMSE; K1 and K3 exactly (UNet calls) x (10, 65) on the kernel
+    side, none on the plain side; every PNG decodes to its size, and the SR
+    panel equals colormaps.apply of the returned SR field at 220-315 K."""
+    import numpy as np
+
+    from srewd_tpu_torch import sample
+    from srewd_tpu_torch.cli import Config, sampler_kwargs
+    from srewd_tpu_torch.diffusion.schedule import Schedule
+    from srewd_tpu_torch.ops import reference_ops
+    from srewd_tpu_torch.training import colormaps
+    from srewd_tpu_torch.training.visualization import crop, read_plate
+
+    def run(tag):
+        return sample.main(["-c", phase6["config"], "-m", phase6["checkpoint"], "-d", EXTRAS_DATE,
+                            "-i", *EXTRAS_TYPES, "-cm", "heat_vibrant", "--sampler", "dpm",
+                            "--ddim-steps", str(DPM_STEPS), "-o",
+                            os.path.join(workdir, f"extras_{tag}"), "--device", str(device)])
+
+    _sample_defaults(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    kern = run("kernels")
+    sec = time.perf_counter() - t0
+    launches, plain = read_counts()
+    reset_counts()
+    with reference_ops():
+        ref = run("plain")
+    launches_ref, plain_ref = read_counts()
+
+    opt = Config(phase6["config"], phase="val", experiment=False).get_opt()
+    opt["model"]["diffusion"].update(sampler="dpm", ddim_steps=DPM_STEPS)
+    bs = opt["model"]["beta_schedule"]
+    schedule = Schedule.from_config(bs.get("val", bs["train"]), device="cpu")
+    calls = _unet_calls({"kw": sampler_kwargs(opt), "n_batches": 1, "ensemble": 1}, schedule)
+    kv, rv = kern["kelvin"], ref["kelvin"]
+    err = rel_rmse(torch.from_numpy(kv["SR"] - kv["INF"]), torch.from_numpy(rv["SR"] - rv["INF"]))
+    sizes, sr_panel_equal = {}, None
+    for path in kern["saved"]:
+        pixels, layout = read_plate(path)
+        (box,) = layout["panels"]
+        sizes[os.path.basename(path)] = [list(pixels.shape), [box["h"], box["w"]]]
+        check(pixels.shape[0] == 128 and (box["h"], box["w"]) == (128, 256),
+              f"{path}: {pixels.shape}, panel {box}")
+        if path.endswith(f"{EXTRAS_DATE}_SR_0.png"):
+            want = colormaps.apply(colormaps.CMAPS["heat_vibrant"], kv["SR"][0, :, :, 0], 220, 315)
+            sr_panel_equal = bool((crop(pixels, box)[::-1] == want).all())
+    line = {"date": EXTRAS_DATE, "sec": sec, "sample_sec": kern["sample_sec"],
+            "render_sec": kern["render_sec"], "plain_sample_sec": ref["sample_sec"],
+            "unet_calls": calls, "launches": launches, "plain_calls": plain,
+            "plain_side": {"launches": launches_ref, "plain_calls": plain_ref},
+            "rel_rmse_residual_kernels_vs_plain": err, "bound": 1e-3, "files": sizes,
+            "sr_panel_equals_apply": sr_panel_equal,
+            "kelvin_sr": [float(kv["SR"].min()), float(kv["SR"].max())]}
+    check([os.path.basename(p) for p in kern["saved"]]
+          == [f"{EXTRAS_DATE}_{t}_0.png" for t in EXTRAS_TYPES], f"files {kern['saved']}")
+    check(launches["flash_attention"] == calls * per_call["attention_calls"]
+          and launches["gn_swish"] == calls * per_call["gn_calls"],
+          f"sample -d: launches {launches} for {calls} UNet calls")
+    check(launches["flash_attention_backward"] == 0 and launches["gn_swish_backward"] == 0
+          and sum(plain.values()) == 0, f"sample -d: {launches}, plain {plain}")
+    check(sum(launches_ref.values()) == 0 and plain_ref["attention_reference"] > 0,
+          f"the plain side launched {launches_ref}, called {plain_ref}")
+    check(err <= 1e-3, f"sample -d SR, kernels vs plain: {err}")
+    check(sr_panel_equal, "the SR panel differs from colormaps.apply of the returned field")
+    check(bool(np.isfinite(kv["SR"]).all()) and 180 < kv["SR"].min() and kv["SR"].max() < 360,
+          f"SR outside a Kelvin range: {line['kelvin_sr']}")
+    return line
+
+
+def extras_render(torch, workdir, device, phase6, cnn_ckpt) -> dict:
+    """Phase 16(c): the plates phase 6's training wrote at its step-20
+    validation (the shipped config sets train.save_visualizations), then,
+    with them deleted, `train.main -p val` on phase 6's checkpoint (every
+    val batch, DDIM-10; the first batch's plates under results/<epoch>/, SR
+    at 220-315 K), and the SimpleCNN's save_results at max_batches=2 on
+    phase 8's tree; (d) WandbLogger."""
+    import glob
+    import shutil
+
+    from srewd_tpu_torch import train
+    from srewd_tpu_torch.cli import Config, build_data_handler
+    from srewd_tpu_torch.training.pretrainer import (
+        EncoderTrainer, get_encoder_and_criterion, load_encoder_params)
+    from srewd_tpu_torch.training.visualization import read_plate
+    from srewd_tpu_torch.utils.wandb_logger import WandbLogger
+
+    with open(phase6["config"]) as f:
+        cfg = json.load(f)
+    check(cfg["train"].get("save_visualizations") is True, "phase 6 renders no plates")
+    run_dir = os.path.dirname(os.path.dirname(phase6["checkpoint"]))
+    pattern = os.path.join(run_dir, "results", "*", "*_20_1_*.png")
+    phase6_plates = sorted(os.path.basename(p) for p in glob.glob(pattern))
+    check(len(phase6_plates) == 7, f"phase 6's validation wrote {phase6_plates}")
+    shutil.rmtree(os.path.join(run_dir, "results"))
+    cfg["path"]["resume_state"] = phase6["checkpoint"]
+    path = _write_config(workdir, "extras_val", cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    val = train.main(["-p", "val", "-c", path, "--device", str(device)])
+    sec_val = time.perf_counter() - t0
+    launches, plain = read_counts()
+    plates = sorted(glob.glob(pattern))
+    check(len(plates) == 7, f"-p val wrote {plates}")
+    for p in plates:
+        pixels, layout = read_plate(p)
+        check(pixels.shape[0] == 128 and [(b["h"], b["w"]) for b in layout["panels"]]
+              == [(128, 256)], f"{p}: {pixels.shape}")
+    sr_range = [(b["vmin"], b["vmax"]) for p in plates if p.endswith("_SR_0.png")
+                for b in read_plate(p)[1]["panels"]]
+    check(sr_range == [(220, 315)], f"-p val SR plate range {sr_range}")
+    check(all(math.isfinite(v) for v in val.values()), f"-p val metrics {val}")
+    check(sum(plain.values()) == 0 and launches["flash_attention"] > 0,
+          f"-p val: launches {launches}, plain {plain}")
+
+    cnn_cfg = os.path.join(workdir, "pretrain_cnn.json")
+    opt = Config(cnn_cfg, phase="val", experiment=False).get_opt()
+    module, criterion = get_encoder_and_criterion(opt["model"])
+    module.load_state_dict(load_encoder_params(cnn_ckpt), strict=True)
+    trainer = EncoderTrainer(module, criterion, device=device)
+    out_dir = os.path.join(workdir, "extras_cnn_results")
+    t0 = time.perf_counter()
+    n = trainer.save_results(build_data_handler(opt), out_dir, max_batches=2)
+    sec_cnn = time.perf_counter() - t0
+    files = sorted(os.listdir(out_dir))
+    check(n == 2 and files == ["result_0.png", "result_1.png"], f"save_results wrote {files}")
+    for f in files:
+        pixels, layout = read_plate(os.path.join(out_dir, f))
+        check([b["key"] for b in layout["panels"]] == ["INF", "SR", "HR"]
+              and all((b["h"], b["w"]) == (128, 256) for b in layout["panels"]),
+              f"{f}: {layout['panels']}")
+    # _write_config drops the shipped config's `wandb` section: no run of
+    # this script may import wandb (its init reaches the network)
+    wandb_enabled = WandbLogger(cfg).enabled
+    check(not wandb_enabled and "wandb" not in sys.modules,
+          f"wandb enabled {wandb_enabled}, imported {'wandb' in sys.modules}")
+    return {"phase6_plates": phase6_plates, "val_sec": sec_val, "val_metrics": val,
+            "val_plates": [os.path.basename(p) for p in plates],
+            "val_launches": launches, "cnn_results": files, "cnn_results_sec": sec_cnn,
+            "wandb_enabled": wandb_enabled}
+
+
+def run_extras(torch, workdir, device, phase6, per_call, cnn_ckpt) -> dict:
+    """Phase 16: the optimizers (a), the date mode (b), the renders (c) and
+    wandb (d) on phase 6's checkpoint and config and phase 8's SimpleCNN.
+    Returns the kernels' launches of its main-path runs."""
+    from collections import Counter
+
+    t_start = time.perf_counter()
+    step = compare_optimizer_step(torch, device, phase6)
+    t_step = time.perf_counter() - t_start
+    runs = {name: extras_train(torch, workdir, device, phase6, per_call, name)
+            for name in ("lamb", "lion")}
+    sampled = extras_sample(torch, workdir, device, phase6, per_call)
+    rendered = extras_render(torch, workdir, device, phase6, cnn_ckpt)
+    total = Counter()
+    for launches in (runs["lamb"]["launches"], runs["lion"]["launches"], sampled["launches"],
+                     rendered["val_launches"]):
+        total.update(launches)
+    emit({"phase": "extras", "optimizer_step_vs_f64": step, "train": runs,
+          "adam_step_host_ms_phase6": (phase6.get("step") or {}).get("step_host_ms"),
+          "sample_date": sampled, "render": rendered, "launches": dict(total),
+          "sec_optimizer_step_vs_f64": t_step, "sec": time.perf_counter() - t_start})
+    return dict(total)
+
+
 def kernel_entry(name, route, source, replaces, tot, launches_by_phase) -> dict:
     """The kernels line's entry: `launches` sums the main-path runs (phases
-    4, 6, 8, 9, 11, 12, 13, 14 and 15, each counted from 0), `launches_by_phase`
-    splits them."""
+    4, 6, 8, 9, 11, 12, 13, 14, 15 and 16, each counted from 0),
+    `launches_by_phase` splits them."""
     entry = {"name": name, "route": route, "source": source, "replaces": replaces,
              "launches": sum(launches_by_phase.values()),
              "launches_by_phase": launches_by_phase, "max_abs_err": tot["f32_err"],
@@ -3340,11 +3666,11 @@ def main(argv: list) -> int:
     bf16_steps = argv[1] if len(argv) == 2 and argv[0] == "--bf16-step" else None
     worker = argv[1] if len(argv) >= 3 and argv[0] == "--worker" else None
     if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"], ["--ddp"],
-                    ["--quality"]) and not (
+                    ["--quality"], ["--extras"]) and not (
             (stress or bf16_steps or "").isdigit()) and worker not in ("train-main", "gloo-step"):
         print(f"chip_smoke: unknown arguments {argv}; the options are --profile, "
-              "--train-kernels, --serve, --ddp, --quality, --stress N and --bf16-step N",
-              file=sys.stderr)
+              "--train-kernels, --serve, --ddp, --quality, --extras, --stress N and "
+              "--bf16-step N", file=sys.stderr)
         return 2
     import torch
 
@@ -3356,6 +3682,9 @@ def main(argv: list) -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    # every config is written without its `wandb` section (_write_config);
+    # should one slip through, wandb starts disabled, without reporting errors
+    os.environ.update(WANDB_MODE="disabled", WANDB_ERROR_REPORTING="false")
     if worker == "train-main":  # phase 14's ranks: no lines of their own
         return worker_train_main(argv[2], argv[3], argv[4:])
     if worker == "gloo-step":
@@ -3415,6 +3744,19 @@ def main(argv: list) -> int:
         say(smi)
         return 0
 
+    if argv == ["--extras"]:
+        a, n = main_path_shapes(torch, full_width_model(torch, "phydiff", device), device)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
+            phase6 = run_train_slice(torch, workdir, device)
+            pre = run_pretrain(torch, workdir, device)
+            run_extras(torch, workdir, device, phase6,
+                       {"attention_calls": sum(a.values()), "gn_calls": sum(n.values())},
+                       pre["checkpoints"]["cnn"])
+        say(smi)
+        say(result_line(torch))
+        return 0
+
     attn_shapes, gn_shapes, per_arch = arch_shapes(torch, device)
     emit({"phase": "shapes", "archs": list(per_arch),
           "attention": [[kind, n, d, c] for (kind, n, d), c in sorted(attn_shapes.items())],
@@ -3460,11 +3802,14 @@ def main(argv: list) -> int:
         launches_ddp = run_ddp(torch, workdir, device, phase6)
         torch.cuda.empty_cache()
         launches_quality = run_quality(torch, workdir, device, phase6, per_arch["phydiff"])
+        torch.cuda.empty_cache()
+        launches_extras = run_extras(torch, workdir, device, phase6, per_arch["phydiff"],
+                                     pre["checkpoints"]["cnn"])
 
     by_phase = {"sample_phydiff": launches_sample, "train_phydiff": phase6["launches"],
                 "pretrain": pre["launches"], "archs": launches_archs,
                 "train_bf16": launches_bf16, "bench": launches_bench, "serve": launches_serve,
-                "ddp": launches_ddp, "quality": launches_quality}
+                "ddp": launches_ddp, "quality": launches_quality, "extras": launches_extras}
 
     def entry(name, source, replaces):
         return kernel_entry(name, "cuda", source, replaces, kernels[name],
@@ -3481,10 +3826,14 @@ def main(argv: list) -> int:
               "srewd_tpu/ops/pallas_fused.py:211"),
     ]})
     say(smi)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    say(result_line(torch))
     return 0
+
+
+def result_line(torch) -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":

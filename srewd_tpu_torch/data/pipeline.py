@@ -29,7 +29,7 @@ import numpy as np
 
 from .scalers import MonthlyScalerSet, fit_monthly_scalers
 from .store import WeatherStore
-from .timeindex import months_of, select_months, union_hourly_ranges
+from .timeindex import months_of, parse_date, select_months, union_hourly_ranges
 
 _TYPES = ("lr", "hr")
 
@@ -189,6 +189,10 @@ class DataHandler:
         ts = self.train_timestamps if split == "train" else self.val_timestamps
         bs = self.train_batch_size if split == "train" else self.val_batch_size
         return len(ts) // bs
+
+    def get_data_by_date(self, date) -> dict:
+        """The one-sample batch of the hour `date` (`sample -d`)."""
+        return self.assemble(np.array([parse_date(date)], dtype="datetime64[h]"))
 
     def inverse_transform(self, data: dict, months) -> dict:
         """De-normalize a dict of batches to Kelvin: 'LR' with the lr

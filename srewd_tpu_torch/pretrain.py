@@ -7,10 +7,14 @@ Trains SimpleCNN (model.name "SimpleSR", FFT + DWT loss) or RRDBNet
 ("RRDBNet", L1) on LR -> HR regression and writes one
 `pretrain_<diffusion.name>_E{epoch}` checkpoint per epoch under the run's
 checkpoint directory; diffusion configs name one as
-`pretrained_model.model_path`. `train.optimizer.amsgrad: true` with type
-adam selects amsgrad, as the root pretrain.py does. With `path.resume_state`
-set to such a checkpoint, training continues after its epoch. The encoder
-gets seeded random weights from the config's `seed` (default 0).
+`pretrained_model.model_path`. After the last epoch it writes the IT/SR/HR
+plates of the first 15 validation batches (results/result_{i}.png), and,
+with a `wandb` section in the config and the package installed, logs each
+epoch to Weights & Biases (rank 0 alone writes the plates and logs).
+`train.optimizer.amsgrad: true` with type adam selects amsgrad, as the root
+pretrain.py does. With `path.resume_state` set to such a checkpoint,
+training continues after its epoch. The encoder gets seeded random weights
+from the config's `seed` (default 0).
 
 On a CUDA device TF32 is off and cuDNN runs deterministic algorithms chosen
 by timing (cli.cuda_numerics). `--device` defaults to the card; a CUDA
@@ -44,7 +48,9 @@ def main(argv=None):
     args = parse_args(argv)
     from .cli import build_data_handler, random_init_, training_run
     from .configs.config import dict2str
+    from .parallel import rank
     from .training.pretrainer import EncoderTrainer, get_encoder_and_criterion, run_pretraining
+    from .utils.wandb_logger import WandbLogger
 
     with training_run(args.config, args.phase, args.device) as (opt, device):
         logger = logging.getLogger("base")
@@ -67,7 +73,10 @@ def main(argv=None):
             trainer.resume(opt["path"]["resume_state"])
         if args.phase == "train":
             logger.info("Start training")
-            return run_pretraining(opt, dh, trainer, logger)
+            lead = rank() == 0  # the one rank that logs and renders
+            wandb_logger = WandbLogger(opt, enabled=None if lead else False)
+            return run_pretraining(opt, dh, trainer, logger, wandb_logger,
+                                   results_dir=opt["path"].get("results") if lead else None)
         logger.info("Start testing")
         val = trainer.evaluate(dh)
         logger.info("Val PSNR: {PSNR:.4f}, SSIM: {SSIM:.4f}, RMSE: {RMSE:.4f}, "

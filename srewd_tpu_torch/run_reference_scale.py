@@ -18,8 +18,8 @@ the device (train.device_data_cache) unless `--no-device-cache`, and
 validation runs on the EMA weights (ema_scheduler.use_for_val).
 `path.resume_state` is "auto", so a relaunch of the same command resumes
 from the newest checkpoint of the experiment name. The config keeps
-`save_visualizations: true`, which the port's trainer logs and skips (PNG
-renders are not ported). Evaluate afterwards:
+`save_visualizations: true`: each validation writes its first batch's PNG
+plates under results/<epoch>/. Evaluate afterwards:
 
     python -m srewd_tpu_torch.quality_e2e --arch phydiff --reuse-checkpoint \\
         W/experiments/experiments/<run>/checkpoint/I200000_E<n> --sweep-fast ...

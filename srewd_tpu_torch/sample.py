@@ -1,7 +1,24 @@
-"""Bulk date-range sampling with the port (counterpart of the root sample.py).
+"""Sampling with the port (counterpart of the root sample.py), in its three
+modes.
 
-Super-resolves every hour of [START, END) in fixed-size batches on one
-device and writes each field in Kelvin as <out>/sr/<YYYY-MM-DD-HH>.npy, plus
+The reference's mode renders one date, or the first validation batch, as
+PNG maps in Kelvin (training/visualization.py; no matplotlib needed):
+
+    python -m srewd_tpu_torch.sample -c <cfg>.json -m <checkpoint> -d 2017-01-01-00 \
+        [-i SR HR INTERPOLATED DELTA AE AE_INTER] [-cm heat_vibrant] [-o out] --device cuda
+
+`-d` restricts the data to that date as the root sample.py does: its month
+(months_subset and one transform group), a one-hour validation window, and
+the train window, where the config sets none, defaulting to that hour (the
+scalers are fitted on it). Without `-d` the first validation batch is
+rendered. `-i` picks the types (default: every field but LR; aliases
+INTERPOLATED, DELTA, AE, AE_INTER) and `-cm` the map of the main fields;
+the range is the fixed 220-315 K, DELTA takes abs_color at [-25, 25] and
+the AE maps ae_color at [0, 21]. Files: <out>/<date or val0>_<type>_0.png.
+INF is the bicubic x4 of LR.
+
+Bulk mode super-resolves every hour of [START, END) in fixed-size batches
+and writes each field in Kelvin as <out>/sr/<YYYY-MM-DD-HH>.npy, plus
 <out>/summary.json with the throughput:
 
     python -m srewd_tpu_torch.sample -c <cfg>.json [-m <checkpoint> [--use-ema]] \
@@ -17,10 +34,10 @@ without it the UNet gets seeded random weights and the encoder those of
 `pretrained_model.model_path`. `--use-ema` samples with the checkpoint's
 EMA weights; without EMA state it warns and uses the raw weights.
 `--ensemble N` draws N members per field, each from its own generator
-stream: each member is inverse-transformed to Kelvin, their mean is
-written to sr/ and their standard deviation to sr_std/. `--sampler dpm` is
-DPM-Solver++(2M) with `--ddim-steps` steps. Date-targeted PNG rendering
-(`-d`) is not ported (it needs matplotlib).
+stream: in bulk mode each member is inverse-transformed to Kelvin, their
+mean is written to sr/ and their standard deviation to sr_std/; with `-d`
+the maps show the members' mean. `--sampler dpm` is DPM-Solver++(2M) with
+`--ddim-steps` steps.
 
 On a CUDA device the float32 path runs convolutions and matmuls in full
 float32: TF32 is switched off, so the port's numbers stay comparable with
@@ -46,8 +63,16 @@ def parse_args(argv=None):
     p.add_argument("-c", "--config", required=True)
     p.add_argument("-m", "--model_path", default=None,
                    help="a port checkpoint directory, or srewd_tpu params as .npz")
-    p.add_argument("--date-range", nargs=2, metavar=("START", "END"), required=True,
-                   help="super-resolve every hour in [START, END)")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("-d", "--date", default=None,
+                      help="render this hour (%%Y-%%m-%%d-%%H); neither -d nor --date-range: "
+                           "the first validation batch")
+    mode.add_argument("--date-range", nargs=2, metavar=("START", "END"), default=None,
+                      help="bulk mode: super-resolve every hour in [START, END)")
+    p.add_argument("-i", "--image_types", nargs="*", default=None,
+                   help="the types to render (SR HR INF/INTERPOLATED DELTA AE AE_INTER ...)")
+    p.add_argument("-cm", "--cmap", default="heat_vibrant",
+                   help="the colormap of the main fields")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--save-npy", action="store_true",
                    help="write SR fields (Kelvin) as <out>/sr/<timestamp>.npy")
@@ -89,16 +114,19 @@ def main(argv=None) -> dict:
     set_seeds(0)
     opt = Config(args.config, phase="val", experiment=False).get_opt()
     seed = int(opt.get("seed", 0))
-    start, end = args.date_range
-    ts_all = np.arange(parse_date(start), parse_date(end), np.timedelta64(1, "h"))
-    if len(ts_all) == 0:
-        raise SystemExit(f"empty date range [{start}, {end})")
-    months = sorted(int(m) for m in set(months_of(ts_all)))
-    dh = build_data_handler(opt, val_min_date=start, val_max_date=end,
-                            months_subset=months, val_batch_size=int(args.batch_size))
-    ts_all = dh.val_timestamps
-    if len(ts_all) == 0:
-        raise SystemExit("no data in the requested window")
+    if args.date_range:
+        start, end = args.date_range
+        ts_all = np.arange(parse_date(start), parse_date(end), np.timedelta64(1, "h"))
+        if len(ts_all) == 0:
+            raise SystemExit(f"empty date range [{start}, {end})")
+        months = sorted(int(m) for m in set(months_of(ts_all)))
+        dh = build_data_handler(opt, val_min_date=start, val_max_date=end,
+                                months_subset=months, val_batch_size=int(args.batch_size))
+        ts_all = dh.val_timestamps
+        if len(ts_all) == 0:
+            raise SystemExit("no data in the requested window")
+    else:
+        dh = build_data_handler(opt, **date_overrides(opt, args.date))
 
     dcfg = opt["model"].setdefault("diffusion", {})
     if args.sampler:
@@ -126,6 +154,8 @@ def main(argv=None) -> dict:
     n_ens = max(1, int(args.ensemble))
     generators = [torch.Generator(device=device).manual_seed(member_seed(seed, e))
                   for e in range(n_ens)]
+    if not args.date_range:
+        return render(args, dh, model, schedule, skw, generators, used_ema, device, logger)
     hr_scalers = dh.batch_scalers["hr"]
 
     bs = int(args.batch_size)
@@ -180,6 +210,59 @@ def main(argv=None) -> dict:
         json.dump(summary, f, indent=2)
     logger.info(f"bulk sampling done: {json.dumps(summary)}")
     return summary
+
+
+def date_overrides(opt: dict, date) -> dict:
+    """The DataHandler overrides of `-d DATE` (none without a date): the
+    date's month as the only month and transform group, a one-hour
+    validation window, and the train window defaulting to that hour."""
+    from .data.timeindex import format_date, months_of, parse_date
+
+    if not date:
+        return {}
+    ts = parse_date(date)
+    nxt = format_date(ts + np.timedelta64(1, "h"))
+    month = int(months_of(np.array([ts]))[0])
+    data = opt["data"]
+    return dict(months_subset=[month], groups=[[month]], val_min_date=date, val_max_date=nxt,
+                val_batch_size=1, train_min_date=data.get("train_min_date") or date,
+                train_max_date=data.get("train_max_date") or nxt)
+
+
+def render(args, dh, model, schedule, skw, generators, used_ema, device, logger) -> dict:
+    """The reference's mode: super-resolve the `-d` hour (or the first
+    validation batch; with an ensemble, the members' mean in normalized
+    units), then render the chosen types in Kelvin at the fixed 220-315 K
+    range. Returns {"saved": [paths], "kelvin": {SR, HR, LR, INF, ...}, "tag",
+    "ensemble", "ema", "sample_sec", "render_sec"}."""
+    from .ops.resize import bicubic_up4
+    from .training.visualization import ImageContainer
+
+    batch = dh.get_data_by_date(args.date) if args.date else next(iter(dh.val_batches()))
+    lr = torch.from_numpy(batch["LR"]).to(device)
+    t0 = time.perf_counter()
+    members = [model.generate_sr({"LR": lr}, schedule, generator=g, **skw)
+               for g in generators]
+    sr = (torch.stack(members).mean(0) if len(members) > 1 else members[0]).float().cpu()
+    sample_sec = time.perf_counter() - t0
+    if len(members) > 1:
+        logger.info(f"ensemble of {len(members)}: mean member spread "
+                    f"{torch.stack(members).float().std(0).mean().item():.4f} (normalized units)")
+    images = {"SR": sr.numpy(), "HR": batch["HR"], "LR": batch["LR"],
+              "INF": bicubic_up4(lr).cpu().numpy()}
+    kelvin = dh.inverse_transform(images, batch["months"])
+
+    t0 = time.perf_counter()
+    os.makedirs(args.output, exist_ok=True)
+    container = ImageContainer(kelvin, n_images=1)
+    container.set_min_max(220, 315)  # the fixed Kelvin range
+    tag = args.date or "val0"
+    saved = container.save_all_images(os.path.join(args.output, tag),
+                                      image_types=args.image_types, cmap=args.cmap)
+    render_sec = time.perf_counter() - t0
+    logger.info(f"Saved {len(saved)} images to {args.output}")
+    return {"saved": saved, "kelvin": kelvin, "tag": tag, "ensemble": len(generators),
+            "ema": used_ema, "sample_sec": sample_sec, "render_sec": render_sec}
 
 
 if __name__ == "__main__":

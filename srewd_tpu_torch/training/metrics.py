@@ -135,10 +135,18 @@ class TrainMetrics:
 
     def reset(self):
         self.metrics: dict = {}
+        self.last_log: dict = {}
 
     def update(self, new_dict: dict):
+        self.last_log = new_dict
         for k, v in new_dict.items():
             self.metrics.setdefault(k, []).append(float(v))
+
+    def metrics2dict(self) -> dict:
+        return self.last_log
+
+    def mean_metrics2dict(self) -> dict:
+        return {k: float(np.mean(v)) for k, v in self.metrics.items()}
 
     def metrics2str(self) -> str:
         return "".join(

@@ -4,8 +4,10 @@ Each name maps to the optimizer it names, with optax's defaults where
 torch's differ, so that one step here matches one optax step:
 adam, amsgrad (Adam with amsgrad), adamw (weight decay 1e-4, optax's),
 sgd and asgd (both plain SGD, as the JAX package maps them), rmsprop
-(decay 0.9), adadelta, adagrad (initial accumulator 0.1, eps 1e-7), adamax.
-lamb and lion have no torch.optim class and raise.
+(decay 0.9), adadelta, adagrad (initial accumulator 0.1, eps 1e-7), adamax,
+and `Lamb` and `Lion` (below; torch.optim has neither): optax.lamb's and
+optax.lion's math at their defaults, over the parameter list with
+torch._foreach_* ops (no Python loop per tensor).
 
 `clip_by_global_norm_` is optax.clip_by_global_norm: every gradient is
 scaled by max_norm / ||g|| when ||g|| >= max_norm (torch's clip_grad_norm_
@@ -18,7 +20,6 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-_LATER = "ROADMAP.md Queue 1 item 10 (lamb and lion)"
 
 
 def get_optimizer(name: str, params, lr: float, **kwargs) -> torch.optim.Optimizer:
@@ -34,12 +35,109 @@ def get_optimizer(name: str, params, lr: float, **kwargs) -> torch.optim.Optimiz
         "adagrad": lambda: torch.optim.Adagrad(
             params, lr, **{"initial_accumulator_value": 0.1, "eps": 1e-7, **kwargs}),
         "adamax": lambda: torch.optim.Adamax(params, lr, **kwargs),
+        "lamb": lambda: Lamb(params, lr, **kwargs),
+        "lion": lambda: Lion(params, lr, **kwargs),
     }
-    if name in ("lamb", "lion"):
-        raise NotImplementedError(f"optimizer {name!r} has no torch.optim class: {_LATER}")
     if name not in table:
-        raise ValueError(f"unknown optimizer {name}; options: {sorted(table) + ['lamb', 'lion']}")
+        raise ValueError(f"unknown optimizer {name}; options: {sorted(table)}")
     return table[name]()
+
+
+def _grouped(group: dict, state: dict, names: tuple) -> tuple:
+    """(params, grads, steps, [state tensors per name]) of the group's
+    parameters that have a gradient; each parameter's state is made zero on
+    its first step, its step count a float32 CPU scalar (torch.optim's form,
+    which load_state_dict keeps on the CPU)."""
+    params, grads, steps, bufs = [], [], [], [[] for _ in names]
+    for p in group["params"]:
+        if p.grad is None:
+            continue
+        st = state[p]
+        if not st:
+            st["step"] = torch.tensor(0.0)
+            for n in names:
+                st[n] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        st["step"] += 1
+        params.append(p)
+        grads.append(p.grad)
+        steps.append(st["step"].item())
+        for buf, n in zip(bufs, names):
+            buf.append(st[n])
+    return params, grads, steps, bufs
+
+
+class Lamb(torch.optim.Optimizer):
+    """optax.lamb: Adam's moments with bias correction (b1 0.9, b2 0.999,
+    eps 1e-6 outside the root, eps_root 0 inside it), then + weight_decay * p
+    (default 0), then each tensor's update scaled by its trust ratio
+    ||p|| / ||u||, which is 1 where either norm is 0 (a zero-initialised
+    bias, a zero update), then p -= lr * update. State per parameter:
+    `exp_avg` (optax's mu), `exp_avg_sq` (nu) and `step` (count)."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-6, eps_root: float = 0.0, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None if closure is None else closure()
+        for group in self.param_groups:
+            params, grads, steps, (mu, nu) = _grouped(group, self.state,
+                                                      ("exp_avg", "exp_avg_sq"))
+            if not params:
+                continue
+            b1, b2 = group["b1"], group["b2"]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+            denom = torch._foreach_div(nu, [1.0 - b2 ** s for s in steps])
+            if group["eps_root"]:
+                torch._foreach_add_(denom, group["eps_root"])
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(mu, [1.0 - b1 ** s for s in steps])
+            torch._foreach_div_(update, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(update, params, alpha=group["weight_decay"])
+            p_norm = torch.stack(torch._foreach_norm(params))
+            u_norm = torch.stack(torch._foreach_norm(update))
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                p_norm / u_norm)
+            torch._foreach_mul_(update, list(ratio.unbind()))
+            torch._foreach_add_(params, update, alpha=-group["lr"])
+        return loss
+
+
+class Lion(torch.optim.Optimizer):
+    """optax.lion: update = sign(b1 * m + (1 - b1) * g) + weight_decay * p
+    (b1 0.9, weight decay 1e-3), p -= lr * update, then m = b2 * m +
+    (1 - b2) * g (b2 0.99). sign(0) is 0: a parameter whose gradient and
+    momentum are exactly zero moves by its weight decay alone. State per
+    parameter: `exp_avg` (optax's mu) and `step` (count)."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.99,
+                 weight_decay: float = 1e-3):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None if closure is None else closure()
+        for group in self.param_groups:
+            params, grads, _, (mu,) = _grouped(group, self.state, ("exp_avg",))
+            if not params:
+                continue
+            b1, b2 = group["b1"], group["b2"]
+            update = torch._foreach_mul(mu, b1)
+            torch._foreach_add_(update, grads, alpha=1.0 - b1)
+            torch._foreach_sign_(update)
+            if group["weight_decay"]:
+                torch._foreach_add_(update, params, alpha=group["weight_decay"])
+            torch._foreach_add_(params, update, alpha=-group["lr"])
+            torch._foreach_mul_(mu, b2)
+            torch._foreach_add_(mu, grads, alpha=1.0 - b2)
+        return loss
 
 
 @torch.no_grad()

@@ -10,8 +10,10 @@ the optimizer's state, the epoch and the step count.
 
 Unlike the JAX trainer, which restores params only and reruns every epoch,
 `resume` also restores the optimizer and `run_pretraining` continues with
-the epoch after the checkpoint's. The IT/SR/HR result plates need
-matplotlib and are not ported (ROADMAP.md Queue 1 item 10).
+the epoch after the checkpoint's. After the last epoch, `save_results`
+writes the IT/SR/HR plates of the first 15 validation batches as
+`result_{i}.png` into `path.results` (training/visualization.py), and each
+epoch's loss and metrics go to a WandbLogger when one is given.
 
 Under torchrun (parallel/) the encoder trains under DistributedDataParallel
 on each rank's stride of the index: the gradients are averaged over the
@@ -34,6 +36,7 @@ import torch.nn as nn
 from ..models.rrdb import RRDBNet
 from ..models.simple_cnn import SimpleCNN
 from ..ops.losses import image_compare_loss, l1_loss
+from ..ops.resize import bicubic_up4
 from ..parallel import all_gather_rows, barrier, data_parallel, mean_across, rank
 from .checkpoint import STATE_FILE, CheckpointManager
 from .metrics import ValidationMetrics, create_metric_dict
@@ -123,6 +126,26 @@ class EncoderTrainer:
             metrics.update(inv["SR"], inv["HR"])
         return metrics.compute_metrics()
 
+    def save_results(self, data_handler, out_dir: str, max_batches: int = 15) -> int:
+        """The IT/SR/HR plate of the first sample of each of the first
+        `max_batches` validation batches, in Kelvin, as `result_{i}.png`;
+        returns how many were written."""
+        from .visualization import ImageContainer
+
+        os.makedirs(out_dir, exist_ok=True)
+        saved = 0
+        for i, batch in enumerate(data_handler.val_batches()):
+            if i >= max_batches:
+                break
+            lr = self._put(batch["LR"])
+            images = {"SR": self.predict(lr).float().cpu().numpy(), "HR": batch["HR"],
+                      "INF": bicubic_up4(lr).cpu().numpy()}
+            inv = data_handler.inverse_transform(images, batch["months"])
+            ImageContainer(inv, n_images=1).save_it_sr_hr_plot(
+                os.path.join(out_dir, f"result_{i}.png"))
+            saved += 1
+        return saved
+
     def save(self, epoch: int) -> Optional[str]:
         """Rank 0 writes `pretrain_<name>_E{epoch}`; every rank waits for it."""
         if not self.checkpoint_dir:
@@ -150,9 +173,13 @@ class EncoderTrainer:
 
 
 def run_pretraining(opt: dict, data_handler, trainer: EncoderTrainer,
-                    logger: Optional[logging.Logger] = None) -> list:
-    """pretrain.py's epoch loop: train, evaluate, log, save. Returns one
-    record per epoch: {"epoch", "train_loss", "steps", "train_sec", "val",
+                    logger: Optional[logging.Logger] = None, wandb_logger=None,
+                    results_dir: Optional[str] = None) -> list:
+    """pretrain.py's epoch loop: train, evaluate, log (and to `wandb_logger`:
+    the epoch, the train loss and the validation metrics), save; then, with
+    `results_dir`, write the result plates there (pretrain.py passes
+    `path.results` and the logger on rank 0 only). Returns one record per
+    epoch: {"epoch", "train_loss", "steps", "train_sec", "val",
     "checkpoint"}."""
     logger = logger or logging.getLogger("base")
     epochs = int(opt["train"]["epoch"])
@@ -167,8 +194,17 @@ def run_pretraining(opt: dict, data_handler, trainer: EncoderTrainer,
             f"Epoch [{epoch + 1}/{epochs}], Iter {trainer.iteration}, "
             f"Train Loss: {train_loss:.4f}, Val PSNR: {val['PSNR']:.4f}, "
             f"SSIM: {val['SSIM']:.4f}, RMSE: {val['RMSE']:.4f}, MSE: {val['MSE']:.4f}")
+        if wandb_logger:
+            step = trainer.iteration
+            wandb_logger.log_metrics({"epoch": epoch + 1}, commit=False, step=step)
+            wandb_logger.log_train_metrics({"loss": train_loss}, commit=False, step=step)
+            wandb_logger.log_val_metrics(val, commit=False, step=step)
+            wandb_logger.commit(step=step)
         path = trainer.save(epoch)
         trainer.epoch = epoch + 1
         records.append({"epoch": epoch, "train_loss": train_loss, "steps": steps,
                         "train_sec": train_sec, "val": val, "checkpoint": path})
+    if results_dir:
+        n = trainer.save_results(data_handler, results_dir)
+        logger.info(f"Saved {n} IT/SR/HR result plates to {results_dir}.")
     return records

@@ -46,7 +46,14 @@ DeviceDataset (the split resident on the device; one process only) or else
 through a DevicePrefetcher (host batches assembled and copied ahead in a
 background thread), and captures a torch.profiler trace of `train.profile_steps` steps
 from `train.profile_start` into `train.profile_trace_dir` when it is set.
-Left out (ROADMAP.md Queue 1): wandb, PNG visualisation.
+
+`run_training` and `run_validation` take a WandbLogger (utils/wandb_logger.py)
+and a `visualize_fn(kelvin_fields, epoch, step)`, at the JAX trainer's
+cadence: the last and mean losses every print_freq, a commit every step,
+the validation metrics and time after each validation, and the first
+validation batch in Kelvin (SR, HR, LR and the bicubic INF) handed to
+`visualize_fn` when `train.save_visualizations` is set. Under several
+ranks the entry point passes both on rank 0 only (train.py).
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from ..data.device_cache import DeviceDataset
 from ..data.prefetch import DevicePrefetcher, PinnedCopy
 from ..diffusion.schedule import Schedule
 from ..models.factory import DiffusionModel
+from ..ops.resize import bicubic_up4
 from ..parallel import all_gather_rows, barrier, data_parallel, mean_across, rank, world_size
 from ..utils.profiling import StepTimer, annotate, trace
 from ..utils.seeding import member_seed
@@ -306,7 +314,8 @@ def _copy_state(module) -> dict:
 
 
 def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
-                 logger: Optional[logging.Logger] = None) -> dict:
+                 logger: Optional[logging.Logger] = None, wandb_logger=None,
+                 visualize_fn=None) -> dict:
     """The train driver loop at the reference's cadence: n_iter steps; every
     print_freq, read the pending losses and log them; every val_freq,
     validate (one batch, or the whole val set when full_val_freq divides
@@ -316,6 +325,7 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
     profile_steps) are traced there (defaults 10 and 5). Returns
     {"losses": [(step, loss)], "val": [(step, metrics)], "steps_per_sec",
     "trace": the trace file or None}; the losses are the ranks' mean.
+    `wandb_logger` and `visualize_fn`: see the module's docstring.
     """
     logger = logger or logging.getLogger("base")
     tcfg = opt["train"]
@@ -328,9 +338,6 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
     profile_dir = tcfg.get("profile_trace_dir")
     profile_start = int(tcfg.get("profile_start", 10))
     profile_steps = int(tcfg.get("profile_steps", 5))
-    if tcfg.get("save_visualizations"):
-        logger.info("train.save_visualizations is set; the port renders no PNG yet "
-                    "(ROADMAP.md Queue 1 item 10), so the run writes none.")
 
     train_metrics = TrainMetrics()
     timer = StepTimer()
@@ -402,17 +409,26 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
                             f"Epoch: {trainer.epoch:5}  |  Iteration: {trainer.step:8} |"
                             f" {train_metrics.metrics2str()} | {timer.summary_str()}"
                         )
+                        if wandb_logger:
+                            wandb_logger.log_train_metrics(
+                                train_metrics.metrics2dict(), commit=False, step=trainer.step)
+                            wandb_logger.log_train_mean_metrics(
+                                train_metrics.mean_metrics2dict(), commit=False,
+                                step=trainer.step)
                         train_metrics.reset()
                     if trainer.step % val_freq == 0:
                         full = trainer.step % full_val_freq == 0
                         with annotate("validation"):
                             metrics = run_validation(
                                 opt, data_handler, trainer, logging.getLogger("val"),
-                                max_batches=None if full else 1, use_ema=ema_val)
+                                wandb_logger, max_batches=None if full else 1,
+                                visualize_fn=visualize_fn, use_ema=ema_val)
                         vals.append((trainer.step, metrics))
                     if trainer.step % save_freq == 0:
                         logger.info("Saving models and training states.")
                         trainer.save()
+                    if wandb_logger:
+                        wandb_logger.commit(step=trainer.step)
             finally:
                 if isinstance(batches, DevicePrefetcher):
                     batches.close()
@@ -430,11 +446,15 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
 
 
 def run_validation(opt: dict, data_handler, trainer: DiffusionTrainer,
-                   logger: Optional[logging.Logger] = None, max_batches: Optional[int] = None,
+                   logger: Optional[logging.Logger] = None, wandb_logger=None,
+                   max_batches: Optional[int] = None, visualize_fn=None,
                    use_ema: bool = False) -> dict:
     """Sample, inverse-transform to Kelvin, and stream the metrics. Each rank
     samples its rows of a batch; SR, HR and months are gathered, so every
-    rank computes the metrics of the global batches."""
+    rank computes the metrics of the global batches. With
+    `train.save_visualizations`, the first batch's LR is gathered too and
+    {SR, HR, LR, INF} in Kelvin go to `visualize_fn(fields, epoch, step)`;
+    the metrics and the time go to `wandb_logger`."""
     logger = logger or logging.getLogger("val")
     val_metrics = ValidationMetrics(create_metric_dict())
     t0 = time.time()
@@ -445,12 +465,22 @@ def run_validation(opt: dict, data_handler, trainer: DiffusionTrainer,
         hr, months = (torch.as_tensor(np.asarray(batch[k])) for k in ("HR", "months"))
         sr, hr, months = (all_gather_rows(t) for t in (sr, hr, months))
         images = {"SR": sr.cpu().numpy(), "HR": hr.numpy()}
+        render = i == 0 and bool(opt["train"].get("save_visualizations"))
+        if render:  # every rank gathers
+            lr = all_gather_rows(torch.as_tensor(np.asarray(batch["LR"])).to(trainer.device))
+            images.update(LR=lr.cpu().numpy(), INF=bicubic_up4(lr).cpu().numpy())
         inv = data_handler.inverse_transform(images, months.numpy())
         val_metrics.update(inv["HR"], inv["SR"])
+        if render and visualize_fn is not None:
+            visualize_fn(inv, trainer.epoch, trainer.step)
     val_time = time.time() - t0
     metrics = val_metrics.compute_metrics()
     logger.info(
         f"Epoch: {trainer.epoch:5}  |  Iteration: {trainer.step:8} |"
         f" {val_metrics.metrics2str()} | val_time: {val_time:.1f}s"
     )
+    if wandb_logger:
+        wandb_logger.log_val_metrics(metrics, commit=False, step=trainer.step)
+        wandb_logger.log_val_time(val_time, commit=False, step=trainer.step)
+        wandb_logger.commit(step=trainer.step)
     return metrics

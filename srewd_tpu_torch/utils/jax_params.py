@@ -310,6 +310,42 @@ def optimizer_moments(optimizer, module) -> dict:
     return out
 
 
+# optax's state fields of the port's per-parameter state: Adam and Lamb keep
+# (exp_avg, exp_avg_sq, step) as optax's ScaleByAdamState (mu, nu, count),
+# Lion keeps (exp_avg, step) as ScaleByLionState (mu, count)
+OPTAX_FIELDS = {"exp_avg": "mu", "exp_avg_sq": "nu"}
+
+
+def optax_state(optimizer, module, to_tree) -> dict:
+    """The optimizer's state in optax's fields: {"mu": tree, "nu": tree
+    (Adam, Lamb), "count": int}. `to_tree` maps {parameter name: tensor} to
+    the JAX layout (`partial(jax_tree_from_unet_state, like=params)`)."""
+    moments = optimizer_moments(optimizer, module)
+    counts = {int(st["step"]) for st in optimizer.state.values()}
+    if len(counts) != 1:
+        raise ValueError(f"the parameters' step counts differ: {sorted(counts)}")
+    out = {f: to_tree(moments[k]) for k, f in OPTAX_FIELDS.items() if k in moments}
+    out["count"] = counts.pop()
+    return out
+
+
+def load_optax_state(optimizer, module, state: dict, from_tree) -> None:
+    """The inverse of optax_state: every parameter of `module` in the
+    optimizer takes its moments from optax's fields of `state` ({"mu",
+    "nu" where the optimizer keeps it, "count"}) and the step count;
+    `from_tree` maps a JAX tree to {parameter name: tensor}
+    (`unet_state_from_jax`)."""
+    fields = {k: from_tree(state[f]) for k, f in OPTAX_FIELDS.items() if f in state}
+    owned = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    for name, p in module.named_parameters():
+        if id(p) not in owned:
+            continue
+        st = optimizer.state[p]
+        st["step"] = torch.tensor(float(state["count"]))
+        for key, tensors in fields.items():
+            st[key] = tensors[name].to(device=p.device, dtype=p.dtype).clone()
+
+
 def load_npz(path: str) -> dict:
     """Nested param tree from an .npz whose keys are tree paths joined by '/'."""
     tree: dict = {}

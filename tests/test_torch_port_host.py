@@ -203,3 +203,54 @@ def test_importing_the_whole_port_loads_no_jax_package_module():
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "0 []", r.stdout
     assert len(mods) > 20
+
+
+# absent on the card's machine: a port module may import them only inside a
+# function, where they are used (wandb, xarray, lmdb) or never (the rest)
+OPTIONAL = ("matplotlib", "PIL", "cartopy", "wandb", "xarray", "lmdb")
+
+
+def _module_level_imports(tree):
+    """Import nodes outside every function body (module, class, if and try
+    bodies included)."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        todo.extend(ast.iter_child_nodes(node))
+
+
+def test_no_port_module_imports_an_optional_package_at_module_level():
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in _module_level_imports(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in OPTIONAL]
+    assert not bad, bad
+
+
+def test_importing_the_whole_port_loads_no_optional_package():
+    mods = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
+        for p in _port_sources() if p.startswith(PORT))
+    for rel in ("training.visualization", "training.colormaps", "utils.png",
+                "utils.wandb_logger", "data.conversions", "drive_e2e"):
+        assert f"srewd_tpu_torch.{rel}" in mods, rel
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {OPTIONAL!r}]\n"
+            "print(len(bad), bad)")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "0 []", r.stdout

@@ -80,7 +80,10 @@ def test_training_run_and_relaunch_resume(tmp_path):
     log = open(os.path.join(os.path.dirname(os.path.dirname(ckpts[0])), "logs",
                             "train.log")).read()  # the relaunch's: it starts at step 3
     assert "Iteration:        3 " in log and "Iteration:        1 " not in log
-    assert "renders no PNG" in log
+    # save_visualizations renders at validation only, and --val-freq 1000 runs none
+    results = os.path.join(os.path.dirname(os.path.dirname(ckpts[0])), "results")
+    assert os.path.isdir(results) and not glob.glob(os.path.join(results, "**", "*.png"),
+                                                    recursive=True)
 
 
 def test_srdiff_pipeline(tmp_path):

@@ -362,9 +362,15 @@ def test_optimizer_names():
     for name, cls in kinds.items():
         assert type(get_optimizer(name, p, 1e-3)) is cls
     assert get_optimizer("amsgrad", p, 1e-3).defaults["amsgrad"]
-    for name in ("lamb", "lion"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-            get_optimizer(name, p, 1e-3)
+    from srewd_tpu_torch.training.optimizers import Lamb, Lion
+
+    lamb, lion = get_optimizer("lamb", p, 1e-3), get_optimizer("lion", p, 1e-3)
+    assert type(lamb) is Lamb and type(lion) is Lion
+    # optax's defaults (tests/test_torch_port_optim.py holds the steps to optax)
+    assert {k: lamb.defaults[k] for k in ("b1", "b2", "eps", "eps_root", "weight_decay")} == \
+        {"b1": 0.9, "b2": 0.999, "eps": 1e-6, "eps_root": 0.0, "weight_decay": 0.0}
+    assert {k: lion.defaults[k] for k in ("b1", "b2", "weight_decay")} == \
+        {"b1": 0.9, "b2": 0.99, "weight_decay": 1e-3}
     with pytest.raises(ValueError, match="unknown optimizer"):
         get_optimizer("nope", p, 1e-3)
 
