@@ -12,6 +12,10 @@ every residual architecture on one CUDA card and check them.
     python3 chip_smoke.py --quality        # phases 1-2, phase 6, phase 15
     python3 chip_smoke.py --extras         # phases 1-2, 6, 8 and 16
 
+The whole run aims at 600 s or less. Its depth cut: phase 4 samples 16
+fields (SLICE_FIELDS). Phase 13 exports first, so that the artifact's
+process imports and loads it while the service runs.
+
 Phases, one JSON line each (`t_sec`: seconds since the start); any failure
 exits non-zero before the result. Every line, and a failure's traceback,
 is also written to chiprun_out/chip_smoke.jsonl (chip_smoke_<option>.jsonl
@@ -57,7 +61,8 @@ with an option), whole:
                 cluster size and shared memory per block.
   4. slice    — `srewd_tpu_torch.sample.main` on a synthetic 128x256 / 32x64
                 t2m tree with the shipped DDIM-50 phydiff config at full width:
-                24 fields in float32. K1's and K3's launch counts must be > 0
+                16 fields in float32 (SLICE_FIELDS, the depth cut named
+                above). K1's and K3's launch counts must be > 0
                 and the plain versions must not run.
   5. compare  — generate_sr with the kernels against generate_sr inside
                 `reference_ops()` (same weights, same noise, batch 2, DDIM-5,
@@ -152,27 +157,46 @@ with an option), whole:
                 against the same 4 through the prefetcher (losses equal bit
                 for bit).
  13. serve    — the serving layer on phase 6's phydiff checkpoint, float32,
-                DPM-25, batch 8 (`SamplerService.from_checkpoint`): its HTTP
-                front end on localhost takes 24 fields from 7 concurrent
-                clients (sizes 5 3 1 4 2 6 3); each device batch must match
-                generate_sr of its packed batch (relative RMSE <= 1e-5:
-                float32 sums in another order; `bit_identical` says whether
-                it is exact), each served field its row (1e-3 K), inside a
-                Kelvin range; K1 and K3 launched (device batches) x 25 x
-                (their calls per UNet call), no plain version. Then
-                `python -m srewd_tpu_torch.export_sampler` of the same
-                checkpoint on the card (`export_sec`): the step program
-                must hold one srewd::flash_attention and srewd::gn_swish
-                node per K1 and K3 call of an eager UNet call, the
-                conditioning program none; the artifact loaded in a fresh
-                process at batch 3 and 8 must be within 1e-4 relative RMSE
-                of generate_sr at the same seed (the residual, normalized),
-                launch K1 and K3 25 x (calls per UNet call) times a call and
-                import no model code. `op_dispatch`: host µs of one K1 and
-                K3 call through the wrapper and through the custom op.
-                Last, `python -m srewd_tpu_torch.bench_serve` at its
-                full-width defaults (sr3, bf16, DPM-25, 108 fields), its
-                JSON line passed through.
+                DPM-25, batch 8. First `python -m
+                srewd_tpu_torch.export_sampler` of the checkpoint on the card
+                (`export_sec`), whose artifact a fresh process imports and
+                loads while this one serves (the float32 chains leave the
+                host idle; it runs the artifact after 13(b)). Then
+                `SamplerService.from_checkpoint`: its HTTP front end on
+                localhost takes 24 fields from 7 concurrent clients (sizes 5
+                3 1 4 2 6 3); each device batch must match generate_sr of its
+                packed batch (relative RMSE <= 1e-5: float32 sums in another
+                order; `bit_identical` says whether it is exact), each served
+                field its row (1e-3 K), inside a Kelvin range; K1 and K3
+                launched (device batches) x 25 x (their calls per UNet call),
+                no plain version. (b) replicas: the stack that
+                from_checkpoint's load_stack built (no second model from the
+                config) served by a SamplerService of one replica and one of
+                two, both on the card (`devices=[cuda:0, cuda:0]`): the same
+                24 LR fields as three requests of one device batch each,
+                submitted in order from one thread. Per seq the same packed
+                LR, and the chain outputs' normalized residual (minus the
+                condition) within 1e-5 relative RMSE (`bit_identical` whether
+                exact: expected, not required, as cuBLAS may choose other
+                implementations while several streams are active); each
+                replica of the two ran a batch; K1 and K3 launched exactly
+                (device batches) x 25 x (calls per UNet call) in each run, no
+                backward kernel, no plain version. Then the artifact: its step
+                program must hold one srewd::flash_attention and
+                srewd::gn_swish node per K1 and K3 call of an eager UNet
+                call, the conditioning program none; at batch 3 and 8 it must
+                be within 1e-4 relative RMSE of generate_sr at the same seed
+                (the residual, normalized), launch K1 and K3 25 x (calls per
+                UNet call) times a call and import no model code.
+                `op_dispatch`: host µs of one K1 and K3 call through the
+                wrapper and through the custom op, and `count_us`, of one
+                launch counter increment (under its lock). `python -m
+                srewd_tpu_torch.bench_serve` at its full-width defaults (sr3,
+                bf16, DPM-25, 108 fields), its JSON line passed through; last
+                (13(b) again) `bench_serve --device cuda:0,cuda:0` at its
+                defaults, its line beside the one-replica line (a finding,
+                not a claim: fields/s per replica count on one card).
+                13(b)'s seconds are the `replicas_sec` of its last line.
  14. ddp      — data parallelism. (a) `python -m torch.distributed.run
                 --standalone --nproc_per_node=1` of `srewd_tpu_torch.train`'s
                 main (wrapped by this script's `--worker train-main`, which
@@ -268,7 +292,7 @@ with an option), whole:
                 version call by call, odd repeats in NaN-poisoned memory
                 (see stress_step).
   --serve — phases 1-2, phase 3's shapes and `unet_call` lines, phase 6,
-                then phase 13 (no kernels line).
+                then phase 13, (b) included (no kernels line).
   --ddp — phases 1-2, phase 6, then phase 14 (no kernels line).
   --quality — phases 1-2, phydiff's calls per UNet call (phase 3's hooks),
                 phase 6, then phase 15 (no kernels line).
@@ -280,9 +304,9 @@ with an option), whole:
 Then the kernels' summary line, the card's name and power limit, and the
 result line. In the summary line, `launches` counts the kernel's launches in
 the main-path runs, each counted from 0: phase 4, the first run of phase 6,
-phases 8, 9, 11, 12, 13, 14, 15 and 16 (phase 13's loaded artifact and phase 14's
-ranks counted in their own processes; `launches_by_phase` splits them; the
-launches that
+phases 8, 9, 11, 12, 13, 13(b), 14, 15 and 16 (phase 13's loaded artifact and
+phase 14's ranks counted in their own processes; `launches_by_phase` splits
+them, 13(b) as `serve_replicas`; the launches that
 hold a kernel against its plain version are not among them); `ms`, `plain_ms`,
 `library_ms` and `bound_ms` are device time per main-path unit, float32:
 one UNet call at batch 8 for K1 and K3, one training step at batch 4 for K2
@@ -327,6 +351,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(REPO, "build")
@@ -356,6 +381,7 @@ PRETRAIN_CONFIGS = {
 ENCODER_OF = {"resdiff": "cnn", "srdiff": "rrdb", "physrdiff": "rrdb"}
 BATCH = 8
 LR_HW = (32, 64)  # the synthetic tree's LR fields; HR is 4x
+SLICE_FIELDS = 16  # phase 4: two batches of 8
 ARCH_FIELDS = 16  # phase 9: two batches of 8, so a steady rate exists (ensemble: one)
 DPM_STEPS = 25
 TRAIN_BATCH = 4
@@ -859,12 +885,15 @@ def run_slice(torch, workdir):
     with open(CONFIG) as f:
         cfg = json.load(f)
     cfg["data"].update(data_settings(workdir))
+    # seeded weights: the shipped config names a trained run's checkpoint,
+    # which is not in the repository (sample.main loads path.resume_state)
+    cfg["path"]["resume_state"] = None
     cfg_path = _write_config(workdir, "phydiff_ddim50_smoke", cfg)
     out = os.path.join(workdir, "out")
 
     reset_counts()
     summary = sample.main([
-        "-c", cfg_path, "--date-range", "2017-01-02-00", "2017-01-03-00",
+        "-c", cfg_path, "--date-range", "2017-01-02-00", f"2017-01-02-{SLICE_FIELDS:02d}",
         "--batch-size", str(BATCH), "--save-npy", "-o", out, "--device", "cuda",
     ])
     launches, plain_calls = read_counts()
@@ -877,7 +906,8 @@ def run_slice(torch, workdir):
     emit({"phase": "slice", "fields_written": len(files), "summary": summary,
           "launches": launches, "plain_calls": plain_calls, "finite": finite,
           "kelvin_min": lo, "kelvin_max": hi})
-    check(len(files) == 24 and summary["fields"] == 24, f"expected 24 fields, got {len(files)}")
+    check(len(files) == SLICE_FIELDS and summary["fields"] == SLICE_FIELDS,
+          f"expected {SLICE_FIELDS} fields, got {len(files)}")
     check(all(a.shape == (128, 256, 1) for a in fields), "field shape is not 128x256x1")
     check(finite, "non-finite values in the written fields")
     check(180.0 < lo and hi < 360.0, f"fields outside a plausible Kelvin range: [{lo}, {hi}]")
@@ -2375,7 +2405,10 @@ def op_dispatch_us(torch, device, attn_shapes, gn_shapes) -> dict:
     """Host µs of one call of K1's and K3's forward through the wrapper (the
     eager route) and through the custom op (the exported program's route),
     at the smallest main-path shapes in bf16, where a call's host time
-    exceeds its device time: 200 calls enqueued, then one synchronise."""
+    exceeds its device time: 200 calls enqueued, then one synchronise; and
+    `count_us`, the host µs of one launch counter increment (`ops.count`),
+    beside `count_bare_us`, a bare `+= 1` on an attribute."""
+    from srewd_tpu_torch import ops
     from srewd_tpu_torch.ops import flash_attention as fa
     from srewd_tpu_torch.ops import fused_groupnorm as gn
 
@@ -2404,55 +2437,43 @@ def op_dispatch_us(torch, device, attn_shapes, gn_shapes) -> dict:
             torch.cuda.synchronize()
             out[name] = (time.perf_counter() - t0) / 200 * 1e6
     out["shapes"] = {"k1": [kind, BATCH, n, d], "k3": [list(shape), groups, swish]}
+    # the launch counter's own cost (ops.count: one lock around the
+    # increment), beside a bare increment
+    probe = types.SimpleNamespace(launches=0)
+    t0 = time.perf_counter()
+    for _ in range(100_000):
+        ops.count(probe)
+    t1 = time.perf_counter()
+    for _ in range(100_000):
+        probe.launches += 1
+    out["count_us"] = (t1 - t0) / 100_000 * 1e6
+    out["count_bare_us"] = (time.perf_counter() - t1) / 100_000 * 1e6
     return out
 
 
-def run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes) -> dict:
-    """Phase 13: the serving layer on phase 6's phydiff checkpoint (float32,
-    DPM-25, batch 8): SamplerService.from_checkpoint behind make_server on
-    localhost, 24 fields from 7 concurrent clients, each device batch held
-    against generate_sr of its packed batch and each field against its row;
-    the export_sampler entry point (K1 and K3 as custom-op nodes: per step
-    program as many as one eager UNet call launches); the artifact loaded in
-    a fresh process at batch 3 and 8 against generate_sr at the same seed;
-    then bench_serve at its full-width defaults. Launches: the service's,
-    the artifact's (in its process) and bench_serve's."""
-    import io
+def serve_http(torch, svc, stack, device, calls, dpm, setup_sec: float) -> dict:
+    """Phase 13(a)'s service over HTTP: make_server on localhost, 24 fields
+    from 7 concurrent clients (sizes SERVE_REQUESTS), each device batch
+    held against generate_sr of its packed batch on the stack's own model
+    and each served field against its row; K1 and K3 launched (device
+    batches) x 25 x (calls per UNet call), no plain version. Closes the
+    service; returns its launches."""
     import threading
-    from collections import Counter
 
     import numpy as np
 
-    from srewd_tpu_torch import bench_serve
-    from srewd_tpu_torch import export_sampler as export_cli
     from srewd_tpu_torch.serving.http import make_server
-    from srewd_tpu_torch.serving.service import SamplerService, load_stack
     from srewd_tpu_torch.utils.seeding import member_seed
 
-    t_phase = time.perf_counter()
-    _sample_defaults(torch)
-    cfg, ckpt = phase6["config"], phase6["checkpoint"]
-    dpm = {"sampler": "dpm", "ddim_steps": DPM_STEPS}
-    calls = per_arch["phydiff"]
-    total = Counter()
-
-    # the service over HTTP
-    t0 = time.perf_counter()
-    stack = load_stack(cfg, ckpt, diffusion_overrides=dpm, device=device)
-    stack_sec = time.perf_counter() - t0
     lr_sc, hr_sc = stack.lr_scaler, stack.hr_scaler
     rng = np.random.default_rng(SERVE_SEED)
     reqs = [lr_sc.inverse(rng.standard_normal((n, *LR_HW, 1)).astype(np.float32),
                           np.ones(n, np.int32)) for n in SERVE_REQUESTS]
-    t0 = time.perf_counter()
-    svc = SamplerService.from_checkpoint(cfg, ckpt, diffusion_overrides=dpm, device=device,
-                                         batch_size=BATCH, linger_ms=50.0, seed=SERVE_SEED)
-    service_sec = time.perf_counter() - t0
     batches = []  # (normalized packed LR, seq, the service's raw output) per device batch
     enqueue = svc._enqueue
 
-    def tapped(model, lr, seq):
-        host, event = enqueue(model, lr, seq)
+    def tapped(rep, model, lr, seq):
+        host, event = enqueue(rep, model, lr, seq)
         batches.append((lr, seq, host, event))
         return host, event
 
@@ -2485,7 +2506,6 @@ def run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes
         svc.close()
         serve_thread.join(timeout=60)
     served_launches, served_plain = read_counts()
-    total.update(served_launches)
     check(not errors and all(r is not None for r in results), f"HTTP clients failed: {errors}")
 
     # each device batch against generate_sr of its packed batch (not counted)
@@ -2511,7 +2531,7 @@ def run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes
         lo, hi = min(lo, float(sr.min())), max(hi, float(sr.max()))
     emit({"phase": "serve", "requests": list(SERVE_REQUESTS), "fields": sum(SERVE_REQUESTS),
           "stats": stats, "sec": serve_sec, "fields_per_sec": sum(SERVE_REQUESTS) / serve_sec,
-          "stack_sec": stack_sec, "service_setup_sec": service_sec,
+          "service_setup_sec": setup_sec,
           "direct_sec": time.perf_counter() - t0,
           "device_batches": batch_err, "max_abs_kelvin_vs_direct": field_err,
           "kelvin_min": lo, "kelvin_max": hi, "launches": served_launches,
@@ -2531,10 +2551,42 @@ def run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes
           and served_launches["flash_attention_backward"] == 0
           and served_launches["gn_swish_backward"] == 0 and sum(served_plain.values()) == 0,
           f"serve launches {served_launches} for {n_batches} batches, plain {served_plain}")
+    return served_launches
 
-    # the exported sampler: the entry point, then a fresh process that loads it,
-    # counts its custom-op nodes and runs it, while this one computes the
-    # eager references (its chains come after its ~20 s of imports and loading)
+
+def run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes) -> dict:
+    """Phase 13: the serving layer on phase 6's phydiff checkpoint (float32,
+    DPM-25, batch 8). The export_sampler entry point first (K1 and K3 as
+    custom-op nodes: per step program as many as one eager UNet call
+    launches), whose artifact a fresh process imports and loads while this
+    one serves; SamplerService.from_checkpoint behind make_server on
+    localhost, 24 fields from 7 concurrent clients, each device batch held
+    against generate_sr of its packed batch and each field against its row
+    (`serve_http`); (b) the same stack served by one replica and by two on
+    the card (`serve_replicas`); then the artifact's calls at batch 3 and 8
+    against generate_sr at the same seed; bench_serve at its full-width
+    defaults, and last bench_serve over two replicas. Launches: the
+    service's, the artifact's (in its process) and bench_serve's under
+    "serve", 13(b)'s under "serve_replicas"."""
+    import io
+    from collections import Counter
+
+    import numpy as np
+
+    from srewd_tpu_torch import bench_serve
+    from srewd_tpu_torch import export_sampler as export_cli
+    from srewd_tpu_torch.serving.service import SamplerService
+
+    t_phase = time.perf_counter()
+    _sample_defaults(torch)
+    cfg, ckpt = phase6["config"], phase6["checkpoint"]
+    dpm = {"sampler": "dpm", "ddim_steps": DPM_STEPS}
+    calls = per_arch["phydiff"]
+    total = Counter()
+
+    # the exported sampler: the entry point, then a fresh process that imports
+    # and loads it and counts its custom-op nodes while this one serves (a
+    # float32 chain leaves the host idle), and runs it at a line on its stdin
     path = os.path.join(workdir, "phydiff_dpm25.srexport")
     out = io.StringIO()
     reset_counts()
@@ -2544,10 +2596,9 @@ def run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes
     export_launches, _ = read_counts()
     check(out.getvalue().startswith("EXPORT OK "), f"export_sampler printed {out.getvalue()!r}")
     check(sum(export_launches.values()) == 0, f"exporting launched kernels: {export_launches}")
-    lrs = {b: lr_sc.inverse(rng.standard_normal((b, *LR_HW, 1)).astype(np.float32),
-                            np.ones(b, np.int32)) for b in (3, 8)}
-    for b, lr in lrs.items():
-        np.save(os.path.join(workdir, f"serve_lr{b}.npy"), lr)
+    emit({"phase": "export", "export_sec": exported["export_sec"], "mb": exported["mb"],
+          "header": {k: v for k, v in exported.items() if k not in ("noise_ids",)},
+          "launches_while_exporting": export_launches})
     code = f"""
 import json, sys, time
 t_start = time.perf_counter()
@@ -2556,13 +2607,18 @@ import numpy as np
 sys.path.insert(0, {REPO!r})
 from srewd_tpu_torch.ops import flash_attention as fa, fused_groupnorm as gn
 from srewd_tpu_torch.serving.export import load_sampler
+out = {{"import_sec": time.perf_counter() - t_start, "launches": {{}}, "call_sec": {{}}}}
 t0 = time.perf_counter()
 fn = load_sampler({path!r})
-out = {{"load_sec": time.perf_counter() - t0, "launches": {{}}, "call_sec": {{}}}}
+out["load_sec"] = time.perf_counter() - t0
 out["graph_nodes"] = {{name: dict(Counter(str(n.target) for n in ep.graph.nodes
                                           if str(n.target).startswith("srewd.")))
                       for name, ep in (("condition", fn.exported.condition),
                                        ("step", fn.exported.step))}}
+busy = time.perf_counter() - t_start
+if sys.stdin.readline() != "go\\n":
+    sys.exit(3)
+t_go = time.perf_counter()
 for b in (3, 8):
     lr = np.load({workdir!r} + f"/serve_lr{{b}}.npy")
     before = fa.flash_attention.launches, gn.gn_swish.launches
@@ -2576,13 +2632,34 @@ out["plain_calls"] = fa.attention_reference.calls + gn.gn_swish_reference.calls
 model_code = tuple("srewd_tpu_torch." + p for p in ("models", "configs", "diffusion", "training"))
 out["model_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "srewd_tpu")
                               or m.startswith(model_code))
-out["process_sec"] = time.perf_counter() - t_start
+out["process_sec"] = busy + time.perf_counter() - t_go
 print(json.dumps(out))
 """
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, cwd=REPO)
+    proc = subprocess.Popen([sys.executable, "-c", code], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
     try:
+        # the service over HTTP; its stack serves the references and 13(b),
+        # so no second model is built from the config
+        t0 = time.perf_counter()
+        svc = SamplerService.from_checkpoint(cfg, ckpt, diffusion_overrides=dpm,
+                                             devices=[device], batch_size=BATCH,
+                                             linger_ms=50.0, seed=SERVE_SEED)
+        stack = svc.stack
+        total.update(serve_http(torch, svc, stack, device, calls, dpm,
+                                time.perf_counter() - t0))
+        replicas = serve_replicas(torch, device, stack, calls)
+        total_replicas = Counter(replicas["launches"])
+
+        lr_sc, hr_sc = stack.lr_scaler, stack.hr_scaler
+        model, schedule = stack.model, stack.schedule
+        rng = np.random.default_rng(SERVE_SEED + 2)
+        lrs = {b: lr_sc.inverse(rng.standard_normal((b, *LR_HW, 1)).astype(np.float32),
+                                np.ones(b, np.int32)) for b in (3, 8)}
+        for b, lr in lrs.items():
+            np.save(os.path.join(workdir, f"serve_lr{b}.npy"), lr)
+        t0 = time.perf_counter()
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
         wants = {}
         for b, lr_k in lrs.items():  # the eager references (not counted)
             months = np.ones(b, np.int32)
@@ -2601,14 +2678,8 @@ print(json.dumps(out))
     check(proc.returncode == 0, f"the artifact's process failed: {stderr[-3000:]}")
     sub = json.loads(stdout.strip().splitlines()[-1])
     nodes = sub["graph_nodes"]
-    emit({"phase": "export", "export_sec": exported["export_sec"], "mb": exported["mb"],
-          "header": {k: v for k, v in exported.items() if k not in ("noise_ids",)},
-          "graph_nodes": nodes, "launches_while_exporting": export_launches})
     want_nodes = {"srewd.flash_attention.default": calls["attention_calls"],
                   "srewd.gn_swish.default": calls["gn_calls"]}
-    check(nodes["step"] == want_nodes and not nodes["condition"],
-          f"the step program's custom-op nodes {nodes} are not one UNet call's "
-          f"{calls['attention_calls']} K1 and {calls['gn_calls']} K3 calls")
     errs = {}
     for b in (3, 8):
         months = np.ones(b, np.int32)
@@ -2616,10 +2687,14 @@ print(json.dumps(out))
         want, cond = wants[b]
         errs[b] = rel_rmse(torch.from_numpy(got - cond), torch.from_numpy(want - cond))
     per_call = [DPM_STEPS * calls["attention_calls"], DPM_STEPS * calls["gn_calls"]]
-    emit({"phase": "load_sampler", "sec": load_sec, "process_sec": sub["process_sec"],
-          "load_sampler_sec": sub["load_sec"], "call_sec": sub["call_sec"],
+    emit({"phase": "load_sampler", "sec_after_go": load_sec, "process_sec": sub["process_sec"],
+          "import_sec": sub["import_sec"], "load_sampler_sec": sub["load_sec"],
+          "call_sec": sub["call_sec"], "graph_nodes": nodes,
           "rel_rmse_vs_generate_sr": errs, "launches": sub["launches"],
           "plain_calls": sub["plain_calls"], "model_modules": sub["model_modules"]})
+    check(nodes["step"] == want_nodes and not nodes["condition"],
+          f"the step program's custom-op nodes {nodes} are not one UNet call's "
+          f"{calls['attention_calls']} K1 and {calls['gn_calls']} K3 calls")
     check(all(e <= 1e-4 for e in errs.values()),
           f"the loaded artifact is off generate_sr by {errs} (relative RMSE, bound 1e-4)")
     check(all(v == per_call for v in sub["launches"].values()) and sub["plain_calls"] == 0,
@@ -2649,7 +2724,119 @@ print(json.dumps(out))
     check(launches["flash_attention"] > 0 and launches["gn_swish"] > 0
           and launches["flash_attention_backward"] == launches["gn_swish_backward"] == 0
           and sum(plain.values()) == 0, f"bench_serve: {launches} {plain}")
-    return dict(total)
+
+    # 13(b): bench_serve over two replicas on the one card, beside the line above
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        res2 = bench_serve.main(["--device", f"{device},{device}"])
+    launches, plain = read_counts()
+    total_replicas.update(launches)
+    say(out.getvalue().strip())
+    emit({"phase": "bench_serve_replicas", "result": res2, "one_replica": res,
+          "served_ratio_two_vs_one": res2["value"] / res["value"], "launches": launches,
+          "plain_calls": plain, "sec": time.perf_counter() - t0,
+          "replicas_sec": replicas["sec"] + time.perf_counter() - t0})
+    check(out.getvalue().strip() == json.dumps(res2), f"bench_serve printed {out.getvalue()!r}")
+    check(res2["value"] > 0 and res2["fields"] == 108 and res2["replicas"] == 2
+          and res2["devices"] == [str(device)] * 2, f"bench_serve over two replicas: {res2}")
+    check(launches["flash_attention"] > 0 and launches["gn_swish"] > 0
+          and launches["flash_attention_backward"] == launches["gn_swish_backward"] == 0
+          and sum(plain.values()) == 0, f"bench_serve over two replicas: {launches} {plain}")
+    return {"serve": dict(total), "serve_replicas": dict(total_replicas)}
+
+
+REPLICA_REQUESTS = 3  # 13(b): requests of one device batch each, from one thread
+
+
+def serve_replicas(torch, device, stack, calls) -> dict:
+    """Phase 13(b): the same 24 LR fields, three requests of one device
+    batch each submitted in order from one thread, through a service of one
+    replica and one of two, both on `device`, built from phase 13's stack
+    (its model, weights, schedule and DPM-25 sampler). Per seq, the same
+    packed LR; the chain outputs' normalized residual within 1e-5 relative
+    RMSE (`bit_identical` whether exact: cuBLAS may choose other
+    implementations while several streams are active); the served Kelvin
+    fields beside each other; each replica of the two ran a batch; K1 and
+    K3 launched (device batches) x 25 x (calls per UNet call) in each run,
+    no backward kernel, no plain version."""
+    import numpy as np
+
+    from srewd_tpu_torch.serving.service import SamplerService
+
+    t_phase = time.perf_counter()
+    model, lr_sc, hr_sc = stack.model, stack.lr_scaler, stack.hr_scaler
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    months = np.ones(BATCH, np.int32)
+    reqs = [lr_sc.inverse(rng.standard_normal((BATCH, *LR_HW, 1)).astype(np.float32), months)
+            for _ in range(REPLICA_REQUESTS)]
+    runs, counts = {}, {}
+    for n in (1, 2):
+        svc = SamplerService(model, model.params(), stack.schedule, devices=[device] * n,
+                             batch_size=BATCH, sampler_kwargs=stack.sampler_kwargs,
+                             transform_lr=lr_sc.transform, inverse_hr=hr_sc.inverse,
+                             linger_ms=50.0, seed=SERVE_SEED)
+        batches, enqueue = {}, svc._enqueue
+
+        def tapped(rep, snap, lr, seq, enqueue=enqueue, batches=batches, svc=svc):
+            host, event = enqueue(rep, snap, lr, seq)
+            batches[seq] = (lr, host, event, svc._replicas.index(rep))
+            return host, event
+
+        svc._enqueue = tapped
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            futs = [svc.submit(r, months) for r in reqs]
+            served = [f.result(timeout=600) for f in futs]
+            sec = time.perf_counter() - t0
+            stats = svc.stats()
+        finally:
+            svc.close()
+        counts[n] = read_counts()
+        runs[n] = {"served": served, "batches": batches, "stats": stats, "sec": sec}
+        del svc
+
+    per_batch, worst = [], 0.0
+    for seq in sorted(runs[1]["batches"]):
+        lr1, host1, _, _ = runs[1]["batches"][seq]
+        lr2, host2, _, rep = runs[2]["batches"][seq]
+        check(np.array_equal(lr1, lr2), f"seq {seq} packed other fields on two replicas")
+        cond = model.condition({"LR": torch.from_numpy(lr1).to(device)}).float().cpu()
+        err = rel_rmse(host2 - cond, host1 - cond)
+        worst = max(worst, err)
+        per_batch.append({"seq": seq, "replica": rep, "bit_identical": bool(torch.equal(host1, host2)),
+                          "rel_rmse_residual": err})
+    kelvin = max(float(np.abs(a - b).max()) for a, b in zip(runs[1]["served"], runs[2]["served"]))
+    n_fields = REPLICA_REQUESTS * BATCH
+    per_call = (DPM_STEPS * calls["attention_calls"], DPM_STEPS * calls["gn_calls"])
+    launches = {}
+    for n, (k, p) in counts.items():
+        nb = runs[n]["stats"]["device_batches"]
+        check(k["flash_attention"] == nb * per_call[0] and k["gn_swish"] == nb * per_call[1]
+              and k["flash_attention_backward"] == k["gn_swish_backward"] == 0
+              and sum(p.values()) == 0,
+              f"{n} replica(s): launches {k} for {nb} batches, plain {p}")
+        for name, v in k.items():
+            launches[name] = launches.get(name, 0) + v
+    stats2 = runs[2]["stats"]
+    emit({"phase": "serve_replicas", "devices": stats2["replicas"], "fields": n_fields,
+          "device_batches": per_batch, "max_rel_rmse_residual": worst,
+          "bit_identical": all(b["bit_identical"] for b in per_batch),
+          "max_abs_kelvin_two_vs_one": kelvin,
+          "fields_per_sec": {n: n_fields / runs[n]["sec"] for n in runs},
+          "sec": {n: runs[n]["sec"] for n in runs},
+          "stats": {n: runs[n]["stats"] for n in runs},
+          "launches": {n: counts[n][0] for n in counts}, "phase_sec": time.perf_counter() - t_phase})
+    check(all(runs[n]["stats"]["device_batches"] == REPLICA_REQUESTS for n in runs),
+          f"not one device batch per request: {[runs[n]['stats'] for n in runs]}")
+    check(sorted(runs[1]["batches"]) == sorted(runs[2]["batches"]) == list(range(REPLICA_REQUESTS)),
+          "the two runs took other seqs")
+    check(worst <= 1e-5, f"two replicas differ from one: {per_batch}")
+    check(min(stats2["device_batches_per_replica"]) >= 1,
+          f"a replica ran no batch: {stats2['device_batches_per_replica']}")
+    return {"launches": launches, "sec": time.perf_counter() - t_phase}
 
 
 # ------------------------------------------------------------------- phase 14
@@ -3808,7 +3995,7 @@ def main(argv: list) -> int:
 
     by_phase = {"sample_phydiff": launches_sample, "train_phydiff": phase6["launches"],
                 "pretrain": pre["launches"], "archs": launches_archs,
-                "train_bf16": launches_bf16, "bench": launches_bench, "serve": launches_serve,
+                "train_bf16": launches_bf16, "bench": launches_bench, **launches_serve,
                 "ddp": launches_ddp, "quality": launches_quality, "extras": launches_extras}
 
     def entry(name, source, replaces):

@@ -1,7 +1,8 @@
 """Serving throughput bench of the port: sustained fields/s through
 SamplerService (twin of scripts/bench_serve.py, on its contract).
 
-    python -m srewd_tpu_torch.bench_serve [--sampler dpm --steps 25] [--requests 24]
+    python -m srewd_tpu_torch.bench_serve [--sampler dpm --steps 25] [--requests 24] \
+        [--device cuda | cuda:0,cuda:1 | cuda:0,cuda:0]
 
 Sprays mixed-size requests (sizes (i % batch) + 1: 1..batch fields each)
 at the service and times first submit to last resolve. Contrast: as many
@@ -13,7 +14,14 @@ Defaults are the JAX script's: sr3 at full width (inner 64, mults
 1-2-4-8-8, attention at 16, 2 res blocks) with seeded random weights,
 128x256 fields, bf16, DPM-Solver++(2M) 25 steps over T=1000, batch 8, 24
 requests (108 fields). Prints one JSON line with the JAX script's keys plus
-the device's name. `--device` defaults to the card and raises without one.
+the device's name, the replica count and the replicas' devices.
+
+`--device` takes a comma-separated list, one service replica per entry (a
+card named twice holds two); the default `cuda` is every visible card, and
+raises without one. `value` is the served fields/s over the distinct
+cards (fields/sec/chip); the serialized contrast runs on the first device.
+The warm-up runs a batch on every replica (it raises if one stays cold);
+`device_batches` and `padded_fields` count the timed window only.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ def parse_args(argv=None):
     p.add_argument("--hr-shape", type=int, nargs=2, default=(128, 256),
                    help="HR grid (smoke tests can shrink it)")
     p.add_argument("--inner-channel", type=int, default=64)
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="comma-separated devices, one replica each (cuda: every visible card)")
     return p.parse_args(argv)
 
 
@@ -54,12 +63,13 @@ def model_cfg(hh: int, hw: int, inner_channel: int) -> dict:
 
 def run(args) -> dict:
     from .bench import device_name, synchronize
-    from .cli import cuda_numerics, random_init_, resolve_device
+    from .cli import cuda_numerics, random_init_, resolve_devices
     from .diffusion.schedule import Schedule
     from .models.factory import build_model
     from .serving.service import SamplerService
 
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
+    device = devices[0]
     cuda_numerics(device)
     hh, hw = args.hr_shape
     lh, lw = hh // 4, hw // 4
@@ -76,9 +86,23 @@ def run(args) -> dict:
     sizes = [(i % args.batch) + 1 for i in range(args.requests)]
     reqs = [rng.standard_normal((n, lh, lw, 1)).astype(np.float32) for n in sizes]
     months = [np.ones(n, np.int32) for n in sizes]
-    with SamplerService(model, model.params(), schedule, batch_size=args.batch, device=device,
+    with SamplerService(model, model.params(), schedule, batch_size=args.batch, devices=devices,
                         sampler_kwargs=skw, linger_ms=1.0) as svc:
-        svc.super_resolve(reqs[0], months[0])  # warm-up: kernels, cuDNN's plans, the allocator
+        # warm-up: kernels, cuDNN's plans, each replica's stream allocator and
+        # shadow. One full batch per replica, submitted together (a
+        # dispatcher enqueueing its chain leaves the next batch to another),
+        # until every replica ran one
+        warm_lr = np.repeat(reqs[0][:1], args.batch, axis=0)
+        warm_months = np.ones(args.batch, np.int32)
+        for _ in range(4):
+            if 0 not in svc.stats()["device_batches_per_replica"]:
+                break
+            for f in [svc.submit(warm_lr, warm_months) for _ in devices]:
+                f.result()
+        before = svc.stats()
+        if 0 in before["device_batches_per_replica"]:
+            raise RuntimeError("a replica ran no warm-up batch: "
+                               f"{before['device_batches_per_replica']}")
         t0 = time.perf_counter()
         futs = [svc.submit(r, m) for r, m in zip(reqs, months)]
         for f in futs:
@@ -86,9 +110,11 @@ def run(args) -> dict:
         dt_pipe = time.perf_counter() - t0
         stats = svc.stats()
     total_fields = sum(sizes)
+    # the timed window's batches and padding, the warm-up's left out
+    window = {k: stats[k] - before[k] for k in ("device_batches", "padded_fields")}
 
     # serialized contrast: the same device-batch count, a blocking copy per batch
-    n_batches = max(stats["device_batches"] - 1, 1)  # minus the warm-up
+    n_batches = window["device_batches"]
     full = torch.from_numpy(rng.standard_normal((args.batch, lh, lw, 1)).astype(np.float32))
     full = full.to(device)
 
@@ -105,7 +131,7 @@ def run(args) -> dict:
 
     tag = (f"{args.steps}-step {args.sampler.upper()}(T={args.t})"
            if args.sampler in ("ddim", "dpm") else f"{args.t}-step DDPM")
-    served = total_fields / dt_pipe
+    served = total_fields / dt_pipe / len(set(devices))
     serial = n_batches * args.batch / dt_serial
     out = {
         "metric": f"served SR fields/sec/chip ({tag}, {hh}x{hw}, sr3, "
@@ -115,12 +141,14 @@ def run(args) -> dict:
         "serialized_fields_per_sec": serial,
         "pipeline_speedup_vs_serialized": served / serial,
         "device_batches": n_batches,
-        "padded_fields": stats["padded_fields"],
+        "padded_fields": window["padded_fields"],
         "latency_p50_ms": stats.get("latency_p50_ms"),
         "latency_p95_ms": stats.get("latency_p95_ms"),
         "fields": total_fields,
         "dtype": "bf16",
         "device": device_name(device),
+        "replicas": len(devices),
+        "devices": [str(d) for d in devices],
     }
     print(json.dumps(out), flush=True)
     return out

@@ -18,13 +18,13 @@ from .configs.config import Config
 from .data.pipeline import DataHandler
 from .parallel import (
     broadcast_object, init_distributed, local_device, rank, shutdown, world_size)
-from .training.checkpoint import CheckpointManager
+from .training.checkpoint import CheckpointManager, load_tolerant
 from .utils.jax_params import load_npz, unet_state_from_jax
 from .utils.seeding import set_seeds
 
 __all__ = ["Config", "build_data_handler", "build_trainer", "sampler_kwargs", "set_seeds",
-           "init_weights", "load_model_weights", "random_init_", "resolve_device",
-           "process_device", "training_run", "denormalize"]
+           "init_weights", "load_model_weights", "load_sampling_weights", "random_init_",
+           "resolve_device", "resolve_devices", "process_device", "training_run", "denormalize"]
 
 
 def build_data_handler(opt: dict, storage_root: str | None = None, **overrides) -> DataHandler:
@@ -146,6 +146,29 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def resolve_devices(spec=None) -> list[torch.device]:
+    """The devices of a serving entry point: a device, a list of them, or a
+    comma-separated string ("cuda:0,cuda:1"; one card may be named twice).
+    None and a bare "cuda" mean every visible card, and raise without one;
+    each card gets its index."""
+    if spec is None:
+        spec = "cuda"
+    if isinstance(spec, str):
+        spec = [s.strip() for s in spec.split(",") if s.strip()]
+    elif isinstance(spec, torch.device):
+        spec = [spec]
+    out = []
+    for name in spec:
+        device = resolve_device(str(name))
+        if device.type == "cuda" and device.index is None:
+            out += [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            out.append(device)
+    if not out:
+        raise ValueError(f"no device in {spec!r}")
+    return out
+
+
 def process_device(name: str) -> torch.device:
     """The device of this process for `--device name`. Under torchrun (its
     WORLD_SIZE in the environment) the process first joins the process
@@ -222,29 +245,55 @@ def init_weights(model, opt: dict) -> None:
         model.encoder.load_state_dict(load_encoder_params(path), strict=True)
 
 
-def load_model_weights(model, path: str, use_ema: bool = False) -> bool:
+def load_model_weights(model, path: str, use_ema: bool = False, tolerant: bool = False) -> bool:
     """Load a model's weights from `path`: a checkpoint directory written by
     the port's trainer (UNet, encoder and, with `use_ema`, their EMA), or a
     `.npz` of srewd_tpu UNet params (keys = tree paths joined by '/').
-    Returns whether the EMA weights were loaded: False when asked for and
-    absent."""
+    Strict, or with `tolerant` by `load_tolerant` (the finetune_norm load:
+    the raw weights, never the EMA, as the JAX trainer's tolerant load then
+    re-seeds its EMA from them). Returns whether the EMA weights were
+    loaded: False when asked for and absent."""
     if path.endswith(".npz"):
         unet_sd, enc_sd, ema = unet_state_from_jax(load_npz(path)), None, False
     else:
         state = CheckpointManager.restore(path, map_location="cpu")
-        ema = use_ema and state.get("ema_params") is not None
+        ema = use_ema and not tolerant and state.get("ema_params") is not None
         unet_sd = state["ema_params" if ema else "params"]
         enc_sd = state.get("ema_encoder_params" if ema else "encoder_params")
-    model.unet.load_state_dict(unet_sd, strict=True)
-    if enc_sd is not None:
-        if model.encoder is None:
-            raise ValueError(f"{path} holds encoder weights, but the config builds no encoder")
-        model.encoder.load_state_dict(enc_sd, strict=True)
+    if tolerant:
+        load_tolerant(model.unet, unet_sd, "unet")
+        if enc_sd is not None and model.encoder is not None:
+            load_tolerant(model.encoder, enc_sd, "encoder")
+    else:
+        model.unet.load_state_dict(unet_sd, strict=True)
+        if enc_sd is not None:
+            if model.encoder is None:
+                raise ValueError(f"{path} holds encoder weights, but the config builds no encoder")
+            model.encoder.load_state_dict(enc_sd, strict=True)
     if use_ema and not ema:
         logging.getLogger("base").warning(
-            "--use-ema requested but %s carries no EMA state (train with "
-            "train.ema_scheduler.enabled); sampling with the raw weights instead", path)
+            "--use-ema requested but %s; sampling with the raw weights instead", path + (
+                " is loaded tolerantly (model.finetune_norm), without its EMA" if tolerant else
+                " carries no EMA state (train with train.ema_scheduler.enabled)"))
     return ema
+
+
+def load_sampling_weights(model, opt: dict, model_path: str | None = None,
+                          use_ema: bool = False) -> bool:
+    """The weights of the sampling and serving entry points, by the root
+    sample.py's rule: `model_path` (their -m), else the config's
+    `path.resume_state`, loaded tolerantly under `model.finetune_norm` and
+    strictly otherwise (srewd_tpu.cli.build_trainer); with neither, the
+    model keeps its seeded weights. Returns whether the EMA was loaded."""
+    path = model_path or opt["path"].get("resume_state")
+    if not path:
+        if use_ema:
+            logging.getLogger("base").warning(
+                "--use-ema requested without -m or path.resume_state: sampling with the "
+                "seeded weights")
+        return False
+    return load_model_weights(model, path, use_ema=use_ema,
+                              tolerant=bool(opt["model"].get("finetune_norm")))
 
 
 def denormalize(scalers, x: np.ndarray, months: np.ndarray) -> np.ndarray:

@@ -112,3 +112,12 @@ class Schedule:
             cosine_s=float(cfg.get("cosine_s", 8e-3)),
             device=device,
         )
+
+    def to(self, device: torch.device | str) -> "Schedule":
+        """The same constants on `device` (self where they are there already):
+        each serving replica indexes its own copy."""
+        if self.betas.device == torch.device(device):
+            return self
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if f.name != "num_timesteps"})

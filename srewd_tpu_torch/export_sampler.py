@@ -38,6 +38,7 @@ def parse_args(argv=None):
                    help="export for ONE fixed batch size instead of the default symbolic "
                         "batch dimension")
     add_sampler_flags(p)
+    p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 

@@ -21,10 +21,18 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 
 import torch
 
 _FORCE_PLAIN = contextvars.ContextVar("srewd_torch_force_plain", default=False)
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, name: str = "launches") -> None:
+    """Add one to the counter `fn.<name>` atomically."""
+    with _COUNT_LOCK:
+        setattr(fn, name, getattr(fn, name) + 1)
 
 
 @contextlib.contextmanager

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from . import _build, use_op, use_plain
+from . import _build, count, use_op, use_plain
 
 SUPPORTED_D = (64, 128, 256, 512)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,7 +52,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version, with the TPU kernel's numerics: float32 scores
     and softmax, P cast to V's dtype before P V, float32 sums, output in
     Q's dtype."""
-    attention_reference.calls += 1
+    count(attention_reference, "calls")
     acc = _acc(q)
     s = torch.einsum("bid,bjd->bij", q.to(acc), k.to(acc)) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
@@ -68,7 +68,7 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     full-row float32 P, dP = dO V^T, Δ = rowsum(P ∘ dP), dS = P ∘ (dP - Δ)
     * scale, dQ = dS K, dK = dS^T Q, dV = P^T dO, all in float32, each cast
     to its input's dtype."""
-    attention_backward_reference.calls += 1
+    count(attention_backward_reference, "calls")
     acc = _acc(q)
     qf, kf, vf, dof = q.to(acc), k.to(acc), v.to(acc), do.to(acc)
     p = torch.softmax(torch.einsum("bid,bjd->bij", qf, kf) * scale, dim=-1)
@@ -202,7 +202,7 @@ def _launch_forward(q, k, v, scale, return_lse=False):
     if err != 0:
         msg = lib.srewd_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
-    flash_attention.launches += 1
+    count(flash_attention)
     return (o, lse, o32) if return_lse else o
 
 
@@ -268,7 +268,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         msg = lib.srewd_cuda_error_string_bwd(err).decode()
         raise RuntimeError(f"flash_attention_backward launch failed: {msg} ({err})")
-    flash_attention_backward.launches += 1
+    count(flash_attention_backward)
     return dq, dk, dv
 
 

@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, use_op, use_plain
+from . import _build, count, use_op, use_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (227 KiB)
@@ -185,7 +185,7 @@ def gn_swish_reference(
 ):
     """Plain PyTorch version (the semantics of pallas_fused._pure_gn_swish);
     with `return_stats`, (y, mean, rstd), the statistics float32 [B, G]."""
-    gn_swish_reference.calls += 1
+    count(gn_swish_reference, "calls")
     return _gn_swish_math(x, weight, bias, num_groups, eps, apply_swish, return_stats)
 
 
@@ -197,7 +197,7 @@ def gn_swish_backward_reference(x, dy, weight, bias, num_groups: int = 32, eps: 
     """Plain version of the backward: (dx, dweight, dbias) by autograd of the
     plain forward's math, as the JAX package takes jax.vjp of
     `_pure_gn_swish`; each gradient in its input's dtype."""
-    gn_swish_backward_reference.calls += 1
+    count(gn_swish_backward_reference, "calls")
     inputs = [t.detach().requires_grad_() for t in (x, weight, bias)]
     with torch.enable_grad():
         y = _gn_swish_math(*inputs, num_groups, eps, apply_swish)
@@ -345,7 +345,7 @@ def _launch_forward(x, weight, bias, num_groups, eps, apply_swish, return_stats=
         b, h * w, c, num_groups, plan.slice_channels, plan.cluster, plan.rows_per_cta,
         plan.threads, plan.bytes_per_cta, float(eps), int(apply_swish), _DTYPE_CODE[x.dtype])
     _raise_on(lib, err, "gn_swish launch")
-    gn_swish.launches += 1
+    count(gn_swish)
     return (y, mean, rstd) if return_stats else y
 
 
@@ -411,7 +411,7 @@ def gn_swish_backward(x, dy, weight, bias, mean, rstd, num_groups: int = 32,
         b, h * w, c, num_groups, plan.slice_channels, plan.cluster, plan.rows_per_cta,
         plan.threads, plan.bytes_per_cta, int(apply_swish), _DTYPE_CODE[x.dtype])
     _raise_on(lib, err, "gn_swish_backward launch")
-    gn_swish_backward.launches += 1
+    count(gn_swish_backward)
     return dx, dweight.to(weight.dtype), dbias.to(bias.dtype)
 
 

@@ -29,10 +29,13 @@ and writes each field in Kelvin as <out>/sr/<YYYY-MM-DD-HH>.npy, plus
 
 `-m` takes a checkpoint directory written by `python -m
 srewd_tpu_torch.train` (UNet, encoder and EMA), or srewd_tpu params as an
-.npz whose keys are the tree paths joined by '/' (utils/jax_params.py);
-without it the UNet gets seeded random weights and the encoder those of
-`pretrained_model.model_path`. `--use-ema` samples with the checkpoint's
-EMA weights; without EMA state it warns and uses the raw weights.
+.npz whose keys are the tree paths joined by '/' (utils/jax_params.py).
+Without it the config's `path.resume_state` is loaded, as the root
+sample.py does; with neither, the UNet gets seeded random weights and the
+encoder those of `pretrained_model.model_path`. The load is strict, and
+tolerant under `model.finetune_norm` (`cli.load_sampling_weights`).
+`--use-ema` samples with the checkpoint's EMA weights; without EMA state
+(or under the tolerant load) it warns and uses the raw weights.
 `--ensemble N` draws N members per field, each from its own generator
 stream: in bulk mode each member is inverse-transformed to Kelvin, their
 mean is written to sr/ and their standard deviation to sr_std/; with `-d`
@@ -62,7 +65,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m srewd_tpu_torch.sample")
     p.add_argument("-c", "--config", required=True)
     p.add_argument("-m", "--model_path", default=None,
-                   help="a port checkpoint directory, or srewd_tpu params as .npz")
+                   help="a port checkpoint directory, or srewd_tpu params as .npz "
+                        "(overrides path.resume_state)")
     mode = p.add_mutually_exclusive_group()
     mode.add_argument("-d", "--date", default=None,
                       help="render this hour (%%Y-%%m-%%d-%%H); neither -d nor --date-range: "
@@ -99,7 +103,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from .cli import (
         Config, build_data_handler, cuda_numerics, denormalize, init_weights,
-        load_model_weights, resolve_device, sampler_kwargs, set_seeds,
+        load_sampling_weights, resolve_device, sampler_kwargs, set_seeds,
     )
     from .data.timeindex import format_date, months_of, parse_date
     from .diffusion.schedule import Schedule
@@ -144,11 +148,7 @@ def main(argv=None) -> dict:
     with torch.device(device):  # parameters made on the device, not copied there
         model = build_model(opt["model"], dtype=_DTYPES[args.dtype])
     init_weights(model, opt)
-    used_ema = False
-    if args.model_path:
-        used_ema = load_model_weights(model, args.model_path, use_ema=args.use_ema)
-    elif args.use_ema:
-        logger.warning("--use-ema requested without -m: sampling with the seeded weights")
+    used_ema = load_sampling_weights(model, opt, args.model_path, use_ema=args.use_ema)
     bs_cfg = opt["model"]["beta_schedule"]
     schedule = Schedule.from_config(bs_cfg.get("val", bs_cfg["train"]), device=device)
     n_ens = max(1, int(args.ensemble))

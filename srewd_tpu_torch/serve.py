@@ -6,14 +6,18 @@ does, then keeps the sampler warm behind the batching service
 (serving/service.py) and its HTTP front end (serving/http.py):
 
     python -m srewd_tpu_torch.serve -c <cfg>.json -m <checkpoint> --port 8000 \
-        [--batch-size 8] [--sampler dpm --ddim-steps 25] [--use-ema] [--device cuda]
+        [--batch-size 8] [--sampler dpm --ddim-steps 25] [--use-ema] \
+        [--device cuda | cuda:0,cuda:1 | cuda:0,cuda:0]
 
     curl localhost:8000/healthz
     curl localhost:8000/v1/stats
     curl -X POST localhost:8000/v1/super_resolve \
         -d '{"lr": <[n,lh,lw,1] Kelvin nested list>, "months": [1, ...]}'
 
-`--device` defaults to the card and raises without one.
+`--device` takes a comma-separated list of devices, one replica of the
+model on each (a card named twice holds two); the default `cuda` is every
+visible card, and raises without one. `-m` defaults to the config's
+`path.resume_state` (`cli.load_sampling_weights`).
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ def add_sampler_flags(p: argparse.ArgumentParser) -> None:
                    help="fast-sampler timestep spacing (gaussian.select_taus)")
     p.add_argument("--no-clip-denoised", action="store_true",
                    help="disable the reference's x0 clamp to [-1,1]")
-    p.add_argument("--device", default="cuda")
 
 
 def diffusion_overrides(args) -> dict | None:
@@ -64,6 +67,8 @@ def parse_args(argv=None):
     p.add_argument("--linger-ms", type=float, default=5.0)
     p.add_argument("--seed", type=int, default=0)
     add_sampler_flags(p)
+    p.add_argument("--device", default="cuda",
+                   help="comma-separated devices, one replica each (cuda: every visible card)")
     return p.parse_args(argv)
 
 
@@ -74,12 +79,12 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     service = SamplerService.from_checkpoint(
         args.config, args.model_path, use_ema=args.use_ema,
-        diffusion_overrides=diffusion_overrides(args), device=args.device,
-        batch_size=args.batch_size,
-        linger_ms=args.linger_ms, seed=args.seed)
+        diffusion_overrides=diffusion_overrides(args), devices=args.device,
+        batch_size=args.batch_size, linger_ms=args.linger_ms, seed=args.seed)
     server = make_server(service, host=args.host, port=args.port)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
-          f"(batch {args.batch_size})", flush=True)
+          f"(batch {args.batch_size}, replicas on {','.join(map(str, service.devices))})",
+          flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -7,7 +7,8 @@ state_dict, the EMA weights (when on), step and epoch. `latest()` resolves
 the newest by step, and `resume_state` paths of reference-style configs
 (`.../checkpoint/I{iter}_E{epoch}`) resolve directly; `keep` rotates old
 checkpoints out. `parse_counters` reads (iter, epoch) off such a name, and
-off the reference's `I{iter}_E{epoch}_gen.pth` files.
+off the reference's `I{iter}_E{epoch}_gen.pth` files. `load_tolerant` is
+the finetune_norm load of one module's weights.
 """
 
 from __future__ import annotations
@@ -20,6 +21,19 @@ import torch
 
 _CKPT_RE = re.compile(r"^I(\d+)_E(\d+)$")
 STATE_FILE = "state.pt"
+
+
+def load_tolerant(module: torch.nn.Module, state: dict, name: str) -> None:
+    """`state` into `module` by the JAX trainer's tolerant merge
+    (load_params_tolerant, the finetune_norm load): a tensor on both sides
+    takes the checkpoint's value, one missing from `state` keeps the
+    module's, an extra one is ignored, and a shape mismatch raises."""
+    own = module.state_dict()
+    for k, v in state.items():
+        if k in own and tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"checkpoint shape mismatch at {name}.{k}: {tuple(v.shape)} vs "
+                             f"{tuple(own[k].shape)}")
+    module.load_state_dict({k: v for k, v in state.items() if k in own}, strict=False)
 
 
 class CheckpointManager:

@@ -75,7 +75,7 @@ from ..ops.resize import bicubic_up4
 from ..parallel import all_gather_rows, barrier, data_parallel, mean_across, rank, world_size
 from ..utils.profiling import StepTimer, annotate, trace
 from ..utils.seeding import member_seed
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, load_tolerant
 from .metrics import TrainMetrics, ValidationMetrics, create_metric_dict
 from .optimizers import clip_by_global_norm_, get_optimizer, norm_parameters
 
@@ -89,10 +89,10 @@ def step_seed(seed: int, step: int, stream: int = 0) -> int:
 
 
 def _seed_default_generator(device: torch.device, seed: int) -> None:
-    """Seed the default generator of `device` (the one Dropout draws from)."""
+    """Seed the default generator of `device`, a card with its index or the
+    CPU (the generator Dropout draws from)."""
     if device.type == "cuda":
-        idx = device.index if device.index is not None else torch.cuda.current_device()
-        torch.cuda.default_generators[idx].manual_seed(seed)
+        torch.cuda.default_generators[device.index].manual_seed(seed)
     else:
         torch.default_generator.manual_seed(seed)
 
@@ -136,6 +136,8 @@ class DiffusionTrainer:
     ):
         self.model = model
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:  # the current card
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.schedule_train = schedule_train
         self.schedule_val = schedule_val
         self.sampler_kwargs = dict(sampler_kwargs or {})
@@ -214,18 +216,15 @@ class DiffusionTrainer:
             self.ema_encoder = _copy_state(self.model.encoder)
 
     def load_params_tolerant(self, path: str) -> None:
-        """Params only, non-strict (the finetune_norm load): tensors present
-        in both take the checkpoint's values, the rest keep their init;
-        optimizer state and counters start fresh."""
+        """Params only, non-strict (the finetune_norm load): the UNet from the
+        checkpoint's `params` and the encoder from its `encoder_params`,
+        each by `load_tolerant` (JAX merges its whole param tree, both
+        parts); optimizer state and counters start fresh, and the EMA
+        starts from the loaded weights."""
         loaded = CheckpointManager.restore(path, map_location=self.device)
-        loaded = loaded.get("params", loaded)
-        own = self.model.unet.state_dict()
-        for k, v in loaded.items():
-            if k in own and v.shape != own[k].shape:
-                raise ValueError(f"checkpoint shape mismatch at {k}: {tuple(v.shape)} vs "
-                                 f"{tuple(own[k].shape)}")
-        self.model.unet.load_state_dict({k: v for k, v in loaded.items() if k in own},
-                                        strict=False)
+        load_tolerant(self.model.unet, loaded.get("params", loaded), "unet")
+        if self.model.encoder is not None and loaded.get("encoder_params") is not None:
+            load_tolerant(self.model.encoder, loaded["encoder_params"], "encoder")
         self.reset_ema()
 
     # ------------------------------------------------------------------ steps

@@ -1,7 +1,8 @@
 """The port's serving layer on the CPU: SamplerService against the JAX
-package's, against its own generate_sr, the batching cases of
-tests/test_serving.py, the HTTP front end, and the entry points
-(`from_checkpoint` and export_sampler's CLI on one config, bench_serve).
+package's (on one replica and on two), against its own generate_sr, the
+batching cases of tests/test_serving.py, the HTTP front end, and the entry
+points (`from_checkpoint` and export_sampler's CLI on one config,
+bench_serve). Several replicas: tests/test_torch_port_replicas.py.
 
 Toy width (inner 8, 4 groups, mults (1, 2), attention at 8x16, one res
 block) over 16x32 fields, T = 6 DDPM, as tests/test_serving.py. The JAX
@@ -106,37 +107,48 @@ def _scalers(rng, cls):
             cls(mean + 1, std * 2, "GlobalStandardScaling"))
 
 
-@pytest.mark.parametrize("arch", ["sr3", "phydiff"])
-def test_service_matches_jax_service_split_padded_kelvin(arch):
-    """Same weights, scalers and draws: a 6-field request over batch 4 (two
-    device batches, the second padded) and a 1-field request behind it,
-    field by field in normalized space within test_generate_sr_matches_jax's
-    bound (relative RMSE <= 1e-3 of the chain's own output: the residual for
-    phydiff)."""
+@pytest.fixture(scope="module", params=["sr3", "phydiff"])
+def jax_served(request):
+    """The JAX service on make_mesh(1), once per arch: a 6-field request over
+    batch 4 (two device batches, the second padded) and a 1-field request
+    behind it, with Kelvin scalers; the port model with the same weights."""
+    arch = request.param
     jmodel, tree, port = make_pair(arch)
     rng = np.random.default_rng(3)
     j_lr_sc, j_hr_sc = _scalers(rng, JScalers)
-    lr_sc, hr_sc = (MonthlyScalerSet(s.mean, s.std, "GlobalStandardScaling")
-                    for s in (j_lr_sc, j_hr_sc))
     reqs = [(280 + 3 * _lr(6, seed=4), np.array([1, 2, 3, 4, 5, 6], np.int32)),
             (280 + 3 * _lr(1, seed=5), np.array([7], np.int32))]
-    base = jax.random.key(0)
-
-    def noise(seq, shape, n):
-        return _jax_noise(jax.random.fold_in(base, seq), shape, n)
-
     with JSamplerService(jmodel, tree, JSchedule.from_config(SCHED), batch_size=4,
                          mesh=make_mesh(1), transform_lr=j_lr_sc.transform,
                          inverse_hr=j_hr_sc.inverse) as jsvc:
         want = [jsvc.submit(lr, m) for lr, m in reqs]
         want = [f.result(timeout=300) for f in want]
+    return arch, port, (j_lr_sc, j_hr_sc), reqs, want
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_service_matches_jax_service_split_padded_kelvin(jax_served, replicas):
+    """Same weights, scalers and draws, on one port replica or two: the JAX
+    service's fields, field by field in normalized space within
+    test_generate_sr_matches_jax's bound (relative RMSE <= 1e-3 of the
+    chain's own output: the residual for phydiff). A linger of 200 ms lets
+    the 1-field request join the second batch whatever replica takes it."""
+    arch, port, (j_lr_sc, j_hr_sc), reqs, want = jax_served
+    lr_sc, hr_sc = (MonthlyScalerSet(s.mean, s.std, "GlobalStandardScaling")
+                    for s in (j_lr_sc, j_hr_sc))
+    base = jax.random.key(0)
+
+    def noise(seq, shape, n):
+        return _jax_noise(jax.random.fold_in(base, seq), shape, n)
+
     with SamplerService(port, port.params(), Schedule.from_config(SCHED), batch_size=4,
-                        device=CPU, transform_lr=lr_sc.transform, inverse_hr=hr_sc.inverse,
-                        noise=noise) as svc:
+                        devices=[CPU] * replicas, transform_lr=lr_sc.transform,
+                        inverse_hr=hr_sc.inverse, noise=noise, linger_ms=200.0) as svc:
         got = [svc.submit(lr, m) for lr, m in reqs]
         got = [f.result(timeout=300) for f in got]
         stats = svc.stats()
     assert stats["device_batches"] == 2 and stats["padded_fields"] == 1
+    assert len(stats["device_batches_per_replica"]) == replicas
     for (lr, m), g, w in zip(reqs, got, want):
         assert g.shape == w.shape == (len(m), H, W, 1)
         cond = (np.asarray(jax_bicubic_up4(jnp.asarray(lr_sc.transform(lr, m))))
@@ -150,7 +162,7 @@ def test_service_is_bit_identical_to_generate_sr(stack):
     """Its own generators: device batch `seq` draws from member_seed(seed,
     seq), the padded tail included (tests/test_serving.py's contract)."""
     lr = _lr(6, seed=1)
-    with SamplerService(*stack, batch_size=4, device=CPU, seed=3) as svc:
+    with SamplerService(*stack, batch_size=4, devices=CPU, seed=3) as svc:
         sr = svc.super_resolve(lr, np.ones(6, np.int32))
     np.testing.assert_array_equal(sr[:4], _direct(stack, lr[:4], 0, seed=3))
     padded = np.stack([lr[4], lr[5], lr[4], lr[4]])
@@ -160,7 +172,7 @@ def test_service_is_bit_identical_to_generate_sr(stack):
 class TestBatching:
     def test_split_and_pad(self, stack):
         lr = _lr(6, seed=1)
-        with SamplerService(*stack, batch_size=4, device=CPU) as svc:
+        with SamplerService(*stack, batch_size=4, devices=CPU) as svc:
             sr = svc.super_resolve(lr, np.ones(6, np.int32))
             stats = svc.stats()
         assert sr.shape == (6, H, W, 1)
@@ -171,7 +183,7 @@ class TestBatching:
 
     def test_concurrent_requests_coalesce(self, stack):
         lr = _lr(4, seed=2)
-        with SamplerService(*stack, batch_size=4, device=CPU, linger_ms=500.0) as svc:
+        with SamplerService(*stack, batch_size=4, devices=CPU, linger_ms=500.0) as svc:
             futs = [svc.submit(lr[i:i + 1], np.ones(1, np.int32)) for i in range(4)]
             rows = [f.result(timeout=120) for f in futs]
             stats = svc.stats()
@@ -186,7 +198,7 @@ class TestBatching:
         _, _, other = make_pair("sr3", seed=42)
         params2 = other.params()
         lr = _lr(4, seed=9)
-        with SamplerService(*stack, batch_size=4, device=CPU) as svc:
+        with SamplerService(*stack, batch_size=4, devices=CPU) as svc:
             first = svc.super_resolve(lr, np.ones(4, np.int32))
             svc.update_params(params2)
             second = svc.super_resolve(lr, np.ones(4, np.int32))
@@ -206,7 +218,7 @@ class TestBatching:
         """A batch taken before update_params finishes on the old weights."""
         _, _, other = make_pair("sr3", seed=42)
         lr = _lr(4, seed=9)
-        with SamplerService(*stack, batch_size=4, device=CPU) as svc:
+        with SamplerService(*stack, batch_size=4, devices=CPU) as svc:
             fut = svc.submit(lr, np.ones(4, np.int32))
             while svc.stats()["device_batches"] == 0:  # the dispatcher has taken it
                 threading.Event().wait(0.005)
@@ -215,13 +227,13 @@ class TestBatching:
         np.testing.assert_allclose(old, _direct(stack, lr, 0), atol=1e-5)
 
     def test_closed_service_rejects(self, stack):
-        svc = SamplerService(*stack, batch_size=2, device=CPU)
+        svc = SamplerService(*stack, batch_size=2, devices=CPU)
         svc.close()
         with pytest.raises(RuntimeError, match="closed"):
             svc.submit(_lr(1), np.ones(1, np.int32))
 
     def test_mismatched_field_shape_rejected(self, stack):
-        with SamplerService(*stack, batch_size=4, device=CPU) as svc:
+        with SamplerService(*stack, batch_size=4, devices=CPU) as svc:
             svc.super_resolve(_lr(2), np.ones(2, np.int32))
             bad = np.zeros((1, LH * 2, LW, 1), np.float32)
             with pytest.raises(ValueError, match="compiled shape"):
@@ -230,7 +242,7 @@ class TestBatching:
         assert sr.shape == (2, H, W, 1)
 
     def test_empty_request_rejected(self, stack):
-        with SamplerService(*stack, batch_size=2, device=CPU) as svc:
+        with SamplerService(*stack, batch_size=2, devices=CPU) as svc:
             with pytest.raises(ValueError, match="non-empty"):
                 svc.submit(np.zeros((0, LH, LW, 1), np.float32), np.zeros(0, np.int32))
 
@@ -239,14 +251,14 @@ class TestBatching:
         wider = {part: {k: torch.cat([v] * 2, dim=-1) if v.ndim else v for k, v in sd.items()}
                  for part, sd in params.items()}
         half = {part: {k: v.half() for k, v in sd.items()} for part, sd in params.items()}
-        with SamplerService(*stack, batch_size=2, device=CPU) as svc:
+        with SamplerService(*stack, batch_size=2, devices=CPU) as svc:
             for bad in (wider, half):
                 with pytest.raises(ValueError, match="leaf mismatch"):
                     svc.update_params(bad)
 
     def test_keep_every_and_no_card_rejected(self, stack):
         with pytest.raises(ValueError, match="keep_every"):
-            SamplerService(*stack, device=CPU, sampler_kwargs={"keep_every": 2})
+            SamplerService(*stack, devices=CPU, sampler_kwargs={"keep_every": 2})
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="cuda"):
                 SamplerService(*stack)  # the card is the default device
@@ -258,7 +270,7 @@ class TestKelvinBoundary:
         sc_lr, sc_hr = _scalers(rng, MonthlyScalerSet)
         months = np.array([1, 2, 3, 4], np.int32)
         lr_kelvin = (rng.standard_normal((4, LH, LW, 1)) * 3 + 280).astype(np.float32)
-        with SamplerService(*stack, batch_size=4, device=CPU, transform_lr=sc_lr.transform,
+        with SamplerService(*stack, batch_size=4, devices=CPU, transform_lr=sc_lr.transform,
                             inverse_hr=sc_hr.inverse) as svc:
             sr = svc.super_resolve(lr_kelvin, months)
         norm = sc_lr.transform(lr_kelvin, months)
@@ -274,7 +286,7 @@ class TestKelvinBoundary:
                 raise ValueError("first batch explodes")
             return x
 
-        with SamplerService(*stack, batch_size=2, device=CPU, inverse_hr=bad_inverse) as svc:
+        with SamplerService(*stack, batch_size=2, devices=CPU, inverse_hr=bad_inverse) as svc:
             fut = svc.submit(_lr(4, seed=11), np.ones(4, np.int32))
             with pytest.raises(ValueError, match="first batch explodes"):
                 fut.result(timeout=120)
@@ -290,7 +302,7 @@ class TestKelvinBoundary:
                 raise ValueError("scaler exploded")
             return x
 
-        with SamplerService(*stack, batch_size=2, device=CPU, inverse_hr=bad_inverse) as svc:
+        with SamplerService(*stack, batch_size=2, devices=CPU, inverse_hr=bad_inverse) as svc:
             with pytest.raises(ValueError, match="scaler exploded"):
                 svc.super_resolve(_lr(2), np.ones(2, np.int32))
             sr = svc.super_resolve(_lr(2, seed=5), np.ones(2, np.int32))
@@ -300,7 +312,7 @@ class TestKelvinBoundary:
 class TestHTTP:
     @pytest.fixture()
     def server(self, stack):
-        svc = SamplerService(*stack, batch_size=2, device=CPU)
+        svc = SamplerService(*stack, batch_size=2, devices=CPU)
         srv = make_server(svc, port=0)
         t = threading.Thread(target=srv.serve_forever, daemon=True)
         t.start()
@@ -322,7 +334,9 @@ class TestHTTP:
         with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
             assert json.loads(r.read()) == {"ok": True}
         with urllib.request.urlopen(url + "/v1/stats", timeout=30) as r:
-            assert json.loads(r.read())["batch_size"] == 2
+            stats = json.loads(r.read())
+        assert stats["batch_size"] == 2 and stats["replicas"] == ["cpu"]
+        assert stats["device_batches_per_replica"] == [0]
 
     def test_super_resolve_json(self, server):
         url, stack_t = server
@@ -359,8 +373,8 @@ def test_bench_serve_prints_the_contract(capsys):
     """bench_serve's JSON line has the JAX script's keys; at toy size on the
     CPU (sr3 at inner 32, 32x64, DPM-2, batch 2): 3 requests of sizes 1, 2,
     1 make 4 fields in 2 or 3 device batches after the warm-up's (as they
-    coalesce), and every slot of those and the warm-up's 1-field batch is
-    a field or a padded one."""
+    coalesce), and every slot of those timed batches is a field or a
+    padded one."""
     from srewd_tpu_torch import bench_serve
 
     out = bench_serve.main(["--device", "cpu", "--hr-shape", "32", "64", "--inner-channel",
@@ -373,7 +387,7 @@ def test_bench_serve_prints_the_contract(capsys):
     assert out["metric"] == ("served SR fields/sec/chip (2-step DPM(T=10), 32x64, sr3, "
                              "3 mixed-size requests)")
     assert out["fields"] == 4 and out["device_batches"] in (2, 3)
-    assert 2 * (out["device_batches"] + 1) == 4 + 1 + out["padded_fields"]
+    assert 2 * out["device_batches"] == 4 + out["padded_fields"]
     assert out["value"] > 0 and out["pipeline_speedup_vs_serialized"] == pytest.approx(
         out["value"] / out["serialized_fields_per_sec"])
     assert out["device"] == "cpu" and out["latency_p50_ms"] <= out["latency_p95_ms"]
@@ -414,20 +428,28 @@ def test_export_cli_artifact_equals_the_served_fields(tree_cfg, capsys):
     rng = np.random.default_rng(0)
     lr_k = (280 + 5 * rng.standard_normal((2, LH, LW, 1))).astype(np.float32)
     months = np.ones(2, np.int32)
-    with SamplerService.from_checkpoint(str(tree_cfg / "cfg.json"), device="cpu", batch_size=2,
+    with SamplerService.from_checkpoint(str(tree_cfg / "cfg.json"), devices="cpu", batch_size=2,
                                         seed=5, diffusion_overrides={"sampler": "dpm",
                                                                      "ddim_steps": 3}) as svc:
         served = svc.super_resolve(lr_k, months)
+        assert svc.stack.sampler_kwargs == svc.sampler_kwargs  # the stack it serves, kept
     got = fn(lr_k, months, seed=5).numpy()
     assert 150 < got.min() and got.max() < 400
     np.testing.assert_allclose(got, served, atol=1e-4)
 
 
 def test_entry_points_default_to_the_card(tree_cfg):
+    """export_sampler, serve and bench_serve default to the card (serve and
+    bench_serve to every visible card) and raise without one, as does a
+    list of cards."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
+    from srewd_tpu_torch import bench_serve
+
     cfg = str(tree_cfg / "cfg.json")
     for run in (lambda: export_cli.main(["-c", cfg, "-o", str(tree_cfg / "x.srexport")]),
-                lambda: serve_cli.main(["-c", cfg, "--port", "0"])):
+                lambda: serve_cli.main(["-c", cfg, "--port", "0"]),
+                lambda: serve_cli.main(["-c", cfg, "--port", "0", "--device", "cuda:0,cuda:0"]),
+                lambda: bench_serve.main(["--hr-shape", "32", "64", "--inner-channel", "32"])):
         with pytest.raises(RuntimeError, match="cuda"):
             run()
