@@ -11,10 +11,13 @@ every residual architecture on one CUDA card and check them.
     python3 chip_smoke.py --ddp            # phases 1-2, phase 6, phase 14
     python3 chip_smoke.py --quality        # phases 1-2, phase 6, phase 15
     python3 chip_smoke.py --extras         # phases 1-2, 6, 8 and 16
+    python3 chip_smoke.py --k2-wide        # phases 1-2, float32 K2 at D >= 256: both designs
 
 The whole run aims at 600 s or less. Its depth cut: phase 4 samples 16
 fields (SLICE_FIELDS). Phase 13 exports first, so that the artifact's
-process imports and loads it while the service runs.
+process imports and loads it while the service runs. Phase 3's attention
+rows, the K1 and K2 graph replays and the ragged-N rows included, take
+~8 s: they fit the budget without a cut.
 
 Phases, one JSON line each (`t_sec`: seconds since the start); any failure
 exits non-zero before the result. Every line, and a failure's traceback,
@@ -24,12 +27,16 @@ with an option), whole:
   2. build    — nvcc builds csrc/flash_attention.cu (K1),
                 csrc/flash_attention_bwd.cu (K2) and csrc/gn_swish.cu (K3
                 forward and backward), all at once, into
-                build/srewd_tpu_torch/. One line per CUDA kernel
-                instantiation: registers, static shared memory and spill
-                bytes from `nvcc -Xptxas -v`, and, where cuobjdump is found,
-                the count of tensor-core (HMMA) instructions in its SASS,
-                which must be > 0 for every K1 and K2 kernel but Δ's (the GN
-                kernels have no product and use none by design: NO_HMMA).
+                build/srewd_tpu_torch/, with each source's nvcc seconds.
+                One line per CUDA kernel instantiation: registers, static
+                shared memory and spill bytes from `nvcc -Xptxas -v` (spills
+                must be 0), and, where cuobjdump is found, the counts of
+                tensor-core instructions in its SASS: HGMMA (wgmma) must be
+                > 0 in every K1 and K2 kernel of the wgmma design (`fa3::`),
+                HMMA (mma.sync) in any kept on the warp-MMA design
+                (`fa2::`), whose widths the last build line names
+                (`mma_sync_widths`); K2's Δ and the GN kernels have no
+                product and need none by design (NO_HMMA).
   3. kernels  — each kernel against its plain PyTorch version at every shape
                 one full-width UNet call of phydiff, resdiff, srdiff or
                 physrdiff gives it (found by hooks on one call of each
@@ -54,11 +61,18 @@ with an option), whole:
                 the same bit for bit (no atomics, sums in a fixed order). K3's
                 y must be the same with and without its statistics output, and
                 its mean and rstd within 1e-5 relative of the plain version's.
-                K3 rows also give device_ms (10 calls captured in a CUDA graph
-                and replayed: no host time between calls, unlike ms, which
-                times one call as the caller meets it), pct_of_bound
-                (bound_ms / ms), device_pct_of_bound, and gn_plan's slice,
-                cluster size and shared memory per block.
+                K1, K2 and K3 rows also give device_ms (10 calls captured in
+                a CUDA graph and replayed: no host time between calls,
+                unlike ms, which times one call as the caller meets it),
+                pct_of_bound (bound_ms / ms) and device_pct_of_bound; K1
+                and K2 rows vs_library (ms / library_ms); K3 rows gn_plan's
+                slice, cluster size and shared memory per block, and K3's
+                totals its own ms and device ms over exactly the launches
+                library_ms covers (`ms_over_library_covers`). Then, per
+                head width and dtype, one `kernel_ragged` line at N=200
+                (the last tiles partly past N: TMA's zero fill against the
+                -inf mask), K1 with its LSE and K2 twice, correctness only,
+                under the same tolerances.
   4. slice    — `srewd_tpu_torch.sample.main` on a synthetic 128x256 / 32x64
                 t2m tree with the shipped DDIM-50 phydiff config at full width:
                 16 fields in float32 (SLICE_FIELDS, the depth cut named
@@ -189,8 +203,9 @@ with an option), whole:
                 (the residual, normalized), launch K1 and K3 25 x (calls per
                 UNet call) times a call and import no model code.
                 `op_dispatch`: host µs of one K1 and K3 call through the
-                wrapper and through the custom op, and `count_us`, of one
-                launch counter increment (under its lock). `python -m
+                wrapper and through the custom op, of one direct K2 call
+                (three launches and twelve tensor maps), and `count_us`, of
+                one launch counter increment (under its lock). `python -m
                 srewd_tpu_torch.bench_serve` at its full-width defaults (sr3,
                 bf16, DPM-25, 108 fields), its JSON line passed through; last
                 (13(b) again) `bench_serve --device cuda:0,cuda:0` at its
@@ -625,6 +640,8 @@ def compare_attention(torch, attn_shapes, device) -> dict:
 
     g = torch.Generator(device=device).manual_seed(0)
     k1, k2 = _totals(), _totals()
+    for tot in (k1, k2):
+        tot["device_ms"] = 0.0
     for (kind, n, d), calls in sorted(attn_shapes.items()):
         scale = 1.0 / math.sqrt(d)
         for dtype in (torch.float32, torch.bfloat16):
@@ -639,19 +656,22 @@ def compare_attention(torch, attn_shapes, device) -> dict:
             tol = tolerance(torch, ref, dtype)
             del ref
             ms = cuda_ms(torch, lambda: flash_attention(q, k, v, scale), 10)
+            dev_ms = graph_ms(torch, lambda: flash_attention(q, k, v, scale))
             plain_ms = cuda_ms(torch, lambda: attention_reference(q, k, v, scale), 10)
             lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10)
             work = (4.0 * BATCH * n * n * d, 4.0 * BATCH * n * d * isz)
             b, b_cc = bound(*work, peak), bound(*work)[0] if f32 else None
             emit({"phase": "kernel", "kernel": "flash_attention", "layout": kind, "n": n, "d": d,
                   "batch": BATCH, "dtype": name, "calls_per_unet_call": calls,
-                  "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
-                  "bound_ms_cuda_cores": b_cc})
+                  "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": dev_ms,
+                  "plain_ms": plain_ms, "library_ms": lib_ms, "vs_library": ms / lib_ms,
+                  "bound_ms": b[0], "bound_by": b[1], "pct_of_bound": 100.0 * b[0] / ms,
+                  "device_pct_of_bound": 100.0 * b[0] / dev_ms, "bound_ms_cuda_cores": b_cc})
             check(err <= tol, f"flash_attention {kind} N={n} D={d} {name}: err {err} > {tol}")
             k1[f"{name}_err"] = max(k1[f"{name}_err"], err)
             if f32:
                 _add(k1, calls, ms, plain_ms, lib_ms, b, b_cc)
+                k1["device_ms"] += calls * dev_ms
             del q, k, v, out
 
             # K2 at the training batch, with the forward's row log-sum-exp and
@@ -674,6 +694,8 @@ def compare_attention(torch, attn_shapes, device) -> dict:
             del refs, dq, dk, dv, again
             ms2 = cuda_ms(torch, lambda: flash_attention_backward(q, k, v, o32, lse, do, scale),
                           10)
+            dev_ms2 = graph_ms(torch, lambda: flash_attention_backward(q, k, v, o32, lse, do,
+                                                                       scale))
             plain_ms2 = cuda_ms(
                 torch, lambda: attention_backward_reference(q, k, v, do, scale), 5)
             ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -689,8 +711,10 @@ def compare_attention(torch, attn_shapes, device) -> dict:
                   "calls_per_step": calls, "max_abs_err_dq_dk_dv": errs, "tol": tols,
                   "same_grads_twice": same_grads,
                   "lse_max_abs_err": lse_err, "o_same_with_lse": same_o, "ms": ms2,
-                  "plain_ms": plain_ms2, "library_ms": lib_ms2, "bound_ms": b2[0],
-                  "bound_by": b2[1], "bound_ms_cuda_cores": b2_cc})
+                  "device_ms": dev_ms2, "plain_ms": plain_ms2, "library_ms": lib_ms2,
+                  "vs_library": ms2 / lib_ms2, "bound_ms": b2[0], "bound_by": b2[1],
+                  "pct_of_bound": 100.0 * b2[0] / ms2,
+                  "device_pct_of_bound": 100.0 * b2[0] / dev_ms2, "bound_ms_cuda_cores": b2_cc})
             for nm, e, t in zip(("dq", "dk", "dv"), errs, tols):
                 check(e <= t, f"flash_attention_backward {kind} N={n} D={d} {name} {nm}: "
                               f"err {e} > {t}")
@@ -703,9 +727,173 @@ def compare_attention(torch, attn_shapes, device) -> dict:
             k2[f"{name}_err"] = max(k2[f"{name}_err"], *errs)
             if f32:
                 _add(k2, calls, ms2, plain_ms2, lib_ms2, b2, b2_cc)
+                k2["device_ms"] += calls * dev_ms2
             del q, k, v, do, o, lse, o32, o_plain_fwd
             torch.cuda.empty_cache()
+    for tot in (k1, k2):
+        tot["pct_of_bound"] = 100.0 * tot["bound_ms"] / tot["ms"]
+        tot["device_pct_of_bound"] = 100.0 * tot["bound_ms"] / tot["device_ms"]
+        tot["vs_library"] = tot["ms"] / tot["library_ms"]
+    compare_attention_ragged(torch, device, sorted({d for _, _, d in attn_shapes}))
     return {"flash_attention": k1, "flash_attention_backward": k2}
+
+
+RAGGED_N = 200  # a sequence length no tile size divides
+
+
+def compare_attention_ragged(torch, device, widths) -> None:
+    """Correctness only, at N = RAGGED_N (the last key and query tiles are
+    partly past N: TMA fills those rows with zeros, which the kernels must
+    mask to -inf as keys and not store as rows): per head width and dtype,
+    K1 with its LSE and float32 O, and K2 twice, in the self-attention slab
+    layout at batch 2, under phase 3's tolerances."""
+    from srewd_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, attention_reference, flash_attention,
+        flash_attention_backward)
+
+    g = torch.Generator(device=device).manual_seed(2)
+    n = RAGGED_N
+    for d in widths:
+        scale = 1.0 / math.sqrt(d)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            q, k, v = attention_inputs(torch, "self", 2, n, d, dtype, device, g)
+            do = torch.randn(2, n, d, device=device, generator=g).to(dtype)
+            out = flash_attention(q, k, v, scale)
+            o, lse, o32 = flash_attention(q, k, v, scale, return_lse=True)
+            grads = flash_attention_backward(q, k, v, o32, lse, do, scale)
+            again = flash_attention_backward(q, k, v, o32, lse, do, scale)
+            torch.cuda.synchronize()
+            ref = attention_reference(q, k, v, scale)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = tolerance(torch, ref, dtype)
+            s = torch.einsum("bid,bjd->bij", q.float(), k.float()) * scale
+            lse_err = (lse - torch.logsumexp(s, dim=-1)).abs().max().item()
+            same_o = bool(torch.equal(o, out)) and bool(torch.equal(o32.to(dtype), o))
+            same_grads = all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
+            refs = attention_backward_reference(q, k, v, do, scale)
+            errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(grads, refs)]
+            tols = [tolerance(torch, r, dtype, f32_rel=1e-4) for r in refs]
+            emit({"phase": "kernel_ragged", "n": n, "d": d, "batch": 2, "dtype": name,
+                  "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+                  "o_same_with_lse": same_o, "max_abs_err_dq_dk_dv": errs, "tol_dq_dk_dv": tols,
+                  "same_grads_twice": same_grads})
+            check(err <= tol, f"flash_attention N={n} D={d} {name}: err {err} > {tol}")
+            check(same_o and same_grads, f"K1 / K2 not repeatable at N={n} D={d} {name}")
+            check(lse_err <= 1e-4 * max(1.0, lse.abs().max().item()),
+                  f"K1's LSE is off by {lse_err} (N={n} D={d} {name})")
+            for nm, e, t in zip(("dq", "dk", "dv"), errs, tols):
+                check(e <= t, f"flash_attention_backward N={n} D={d} {name} {nm}: "
+                              f"err {e} > {t}")
+            del q, k, v, do, out, o, lse, o32, grads, again, ref, refs, s
+
+
+K2_WIDE_DEFINE = "SREWD_K2_WIDE_WGMMA"
+
+
+def k2_wide_library():
+    """K2 built with K2_WIDE_DEFINE (float32 at D = 256 and 512 on the wgmma
+    stream kernels, which the default build leaves on mma.sync) into
+    build/srewd_tpu_torch/k2_wide/, bound as the default build is; phase
+    2's line for each of its stream kernels first."""
+    import ctypes
+
+    from srewd_tpu_torch.ops import _build
+    from srewd_tpu_torch.ops.flash_attention import bind_bwd
+
+    src, default = _build._paths("flash_attention_bwd")
+    out = os.path.join(_build.BUILD_DIR, "k2_wide")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, os.path.basename(default))
+    t0 = time.perf_counter()
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{K2_WIDE_DEFINE}", "-o", path,
+                        src], capture_output=True, text=True)
+    check(r.returncode == 0, f"nvcc failed on the {K2_WIDE_DEFINE} build:\n{r.stderr[-3000:]}")
+    sec = time.perf_counter() - t0
+    tool = _build._cuobjdump()
+    counts = None if tool is None else _build.parse_sass_mma(subprocess.run(
+        [tool, "-sass", path], capture_output=True, text=True, timeout=300, check=True).stdout)
+    rows = _build.parse_ptxas(r.stdout + r.stderr)
+    names = _build._demangle([row["kernel"] for row in rows])
+    for row in rows:
+        name = kernel_name(names[row["kernel"]])
+        if "stream" not in name:
+            continue
+        got = None if counts is None else counts.get(row["kernel"], {"hgmma": 0, "hmma": 0})
+        emit({"phase": "build_k2_wide", "kernel": name, "nvcc_sec": sec,
+              "registers": row["registers"], "spill_store_bytes": row["spill_stores"],
+              "spill_load_bytes": row["spill_loads"], "stack_bytes": row["stack"],
+              "hgmma": None if got is None else got["hgmma"]})
+        check(got is None or got["hgmma"] > 0, f"{name} has no HGMMA instruction in its SASS")
+    return bind_bwd(ctypes.CDLL(path))
+
+
+def compare_k2_wide(torch, attn_shapes, device) -> None:
+    """`--k2-wide`: float32 K2 at every main-path shape with D >= 256 and
+    at N = RAGGED_N, the default build (mma.sync kernels at those widths)
+    against the K2_WIDE_DEFINE build (wgmma stream kernels) on the same
+    inputs: each within phase 3's tolerance of the plain version and the
+    same bit for bit twice; ms of one call and device ms (graph) of each,
+    timed default, wgmma, wgmma, default and averaged, beside SDPA's
+    backward."""
+    import torch.nn.functional as F
+
+    from srewd_tpu_torch.ops import launch
+    from srewd_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, flash_attention, flash_attention_backward)
+
+    lib = k2_wide_library()
+
+    def wide(q, k, v, o, lse, do, scale):
+        b, n, d = q.shape
+        dq, dk, dv = (torch.empty_like(do) for _ in range(3))
+        delta = torch.empty((b, n), dtype=torch.float32, device=device)
+        err = launch(device, lib.srewd_flash_attention_bwd, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, d,
+                     q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+                     v.stride(1), float(scale), 0)
+        check(err == 0, f"the {K2_WIDE_DEFINE} build's K2 failed: "
+                        f"{lib.srewd_cuda_error_string_bwd(err).decode()}")
+        return dq, dk, dv
+
+    g = torch.Generator(device=device).manual_seed(3)
+    rows = sorted(k for k in attn_shapes if k[2] >= 256)
+    rows += [("self", RAGGED_N, d) for d in sorted({d for _, _, d in rows})]
+    for kind, n, d in rows:
+        scale = 1.0 / math.sqrt(d)
+        q, k, v = attention_inputs(torch, kind, TRAIN_BATCH, n, d, torch.float32, device, g)
+        do = torch.randn(TRAIN_BATCH, n, d, device=device, generator=g)
+        _, lse, o32 = flash_attention(q, k, v, scale, return_lse=True)
+        fns = {"default": lambda: flash_attention_backward(q, k, v, o32, lse, do, scale),
+               "wgmma": lambda: wide(q, k, v, o32, lse, do, scale)}
+        refs = attention_backward_reference(q, k, v, do, scale)
+        tols = [tolerance(torch, r, torch.float32, f32_rel=1e-4) for r in refs]
+        line = {"phase": "k2_wide", "layout": kind, "n": n, "d": d, "batch": TRAIN_BATCH,
+                "tol_dq_dk_dv": tols}
+        for name, fn in fns.items():
+            grads, again = fn(), fn()
+            torch.cuda.synchronize()
+            errs = [(a - r).abs().max().item() for a, r in zip(grads, refs)]
+            same = all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
+            line[f"max_abs_err_{name}"] = errs
+            line[f"same_grads_twice_{name}"] = same
+            check(same and all(e <= t for e, t in zip(errs, tols)),
+                  f"K2 {name} build at {kind} N={n} D={d}: errors {errs} (tolerance {tols}), "
+                  f"the same twice: {same}")
+        del grads, again, refs
+        for name in ("default", "wgmma", "wgmma", "default"):
+            for key, t in ((f"ms_{name}", cuda_ms(torch, fns[name], 10)),
+                           (f"device_ms_{name}", graph_ms(torch, fns[name]))):
+                line[key] = line.get(key, 0.0) + t / 2
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        line["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do, retain_graph=True), 5)
+        line["wgmma_over_default_device"] = line["device_ms_wgmma"] / line["device_ms_default"]
+        emit(line)
+        del q, k, v, do, lse, o32, ql, kl, vl, out
+        torch.cuda.empty_cache()
 
 
 def compare_gn(torch, gn_shapes, device) -> dict:
@@ -721,7 +909,8 @@ def compare_gn(torch, gn_shapes, device) -> dict:
     k3, k3b = _totals(), _totals()
     for tot in (k3, k3b):
         tot.update(library_ms=0.0, torch_two_calls_ms=0.0, device_ms=0.0,
-                   library_ms_covers="the swish-less launches only (F.group_norm)")
+                   library_ms_covers="the swish-less launches only (F.group_norm)",
+                   ms_over_library_covers=0.0, device_ms_over_library_covers=0.0)
     for (shape, groups, swish), calls in sorted(gn_shapes.items()):
         c = shape[-1]
         for dtype in (torch.float32, torch.bfloat16):
@@ -778,6 +967,9 @@ def compare_gn(torch, gn_shapes, device) -> dict:
                 _add(k3, calls, ms, plain_ms, 0.0, bd, bd[0])
                 k3["device_ms"] += calls * dev_ms
                 k3["library_ms" if not swish else "torch_two_calls_ms"] += calls * torch_ms
+                if not swish:
+                    k3["ms_over_library_covers"] += calls * ms
+                    k3["device_ms_over_library_covers"] += calls * dev_ms
             del x, out, mean, rstd, mean_p, rstd_p
 
             # backward, batch 4: x, dy read once, dx written once
@@ -828,6 +1020,9 @@ def compare_gn(torch, gn_shapes, device) -> dict:
                 _add(k3b, calls, ms2, plain_ms2, 0.0, bd2, bd2[0])
                 k3b["device_ms"] += calls * dev_ms2
                 k3b["library_ms" if not swish else "torch_two_calls_ms"] += calls * torch_ms2
+                if not swish:
+                    k3b["ms_over_library_covers"] += calls * ms2
+                    k3b["device_ms_over_library_covers"] += calls * dev_ms2
             del x, dy, mean, rstd
             torch.cuda.empty_cache()
     for tot in (k3, k3b):
@@ -1038,7 +1233,7 @@ def profile_unet(torch, device) -> None:
         ddim_sec = time.perf_counter() - t0
         emit({"phase": "profile", "dtype": name, "batch": BATCH, "unet_call_host_ms": host_ms,
               "device_busy_ms": busy, "idle_share": 1.0 - busy / host_ms,
-              "flash_attention_ms": sum(r[1] for r in rows if "flash_fwd_kernel" in r[0]),
+              "flash_attention_ms": sum(r[1] for r in rows if "flash_fwd_" in r[0]),
               "gn_swish_ms": sum(r[1] for r in rows if "gn_fwd_kernel" in r[0]),
               "ddim50_sec": ddim_sec, "ddim50_fields_per_sec": BATCH / ddim_sec,
               "top_kernels": [[k[:90], ms, n] for k, ms, n in rows[:12]]})
@@ -1103,7 +1298,7 @@ def check_step(torch, cfg_path, device) -> dict:
     with open(os.path.join(BUILD, "profile", "train_step_f32.json"), "w") as f:
         json.dump(rows, f, indent=0)
     busy = sum(r[1] for r in rows)
-    k1 = sum(r[1] for r in rows if "flash_fwd_kernel" in r[0])
+    k1 = sum(r[1] for r in rows if "flash_fwd_" in r[0])
     k2 = sum(r[1] for r in rows if "flash_bwd_" in r[0])
     k3 = sum(r[1] for r in rows if "gn_fwd_kernel" in r[0])
     k3b = sum(r[1] for r in rows if "gn_bwd_kernel" in r[0] or "gn_wb_kernel" in r[0])
@@ -2093,7 +2288,7 @@ def trace_summary(path: str) -> dict:
         if hi > lo:
             busy += hi - lo
         end = max(end, e["ts"] + e["dur"])
-    families = {"flash_attention": ("flash_fwd_kernel",),
+    families = {"flash_attention": ("flash_fwd_",),
                 "flash_attention_backward": ("flash_bwd_",),
                 "gn_swish": ("gn_fwd_kernel",), "gn_swish_backward": ("gn_bwd_kernel",
                                                                       "gn_wb_kernel")}
@@ -2404,6 +2599,7 @@ def _post_b64(url: str, lr, months) -> "np.ndarray":
 def op_dispatch_us(torch, device, attn_shapes, gn_shapes) -> dict:
     """Host µs of one call of K1's and K3's forward through the wrapper (the
     eager route) and through the custom op (the exported program's route),
+    and of one direct K2 call (its backward: Δ, dK / dV and dQ launches),
     at the smallest main-path shapes in bf16, where a call's host time
     exceeds its device time: 200 calls enqueued, then one synchronise; and
     `count_us`, the host µs of one launch counter increment (`ops.count`),
@@ -2419,9 +2615,12 @@ def op_dispatch_us(torch, device, attn_shapes, gn_shapes) -> dict:
     x = torch.randn(shape, device=device, generator=g).to(torch.bfloat16)
     w = torch.ones(shape[-1], device=device, dtype=torch.bfloat16)
     scale = 1.0 / math.sqrt(d)
+    _, lse, o32 = fa.flash_attention(q, k, v, scale, return_lse=True)
+    do = torch.randn(q.shape, device=device, generator=g).to(torch.bfloat16)
     calls = {
         "k1_direct": lambda: fa.flash_attention(q, k, v, scale),
         "k1_op": lambda: torch.ops.srewd.flash_attention(q, k, v, scale),
+        "k2_direct": lambda: fa.flash_attention_backward(q, k, v, o32, lse, do, scale),
         "k3_direct": lambda: gn.gn_swish(x, w, w, groups, 1e-5, swish),
         "k3_op": lambda: torch.ops.srewd.gn_swish(x, w, w, groups, 1e-5, swish),
     }
@@ -3796,7 +3995,8 @@ def kernel_entry(name, route, source, replaces, tot, launches_by_phase) -> dict:
              "max_abs_err_bf16": tot["bf16_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
              "bound_ms_cuda_cores": tot["bound_ms_cuda_cores"], "library_ms": tot["library_ms"]}
-    for key in ("pct_of_bound", "device_ms", "device_pct_of_bound", "library_ms_covers",
+    for key in ("pct_of_bound", "device_ms", "device_pct_of_bound", "vs_library",
+                "library_ms_covers", "ms_over_library_covers", "device_ms_over_library_covers",
                 "torch_two_calls_ms"):
         if key in tot:
             entry[key] = tot[key]
@@ -3830,22 +4030,52 @@ def needs_hmma(name: str) -> bool:
     return not name.startswith(NO_HMMA)
 
 
+def tensor_core_op(name: str):
+    """The tensor-core instruction phase 2 requires in kernel `name`: HGMMA
+    (warpgroup MMA) in K1's and K2's kernels of the wgmma design (`fa3::`),
+    HMMA (mma.sync) in those of the warp-MMA design kept for some widths
+    (`fa2::`), None where no product is needed (NO_HMMA)."""
+    if not needs_hmma(name):
+        return None
+    return "HGMMA" if name.startswith("fa3::") else "HMMA"
+
+
+def mma_sync_widths(names) -> list:
+    """[dtype, D] of every K1 / K2 kernel instantiation still on the
+    mma.sync design (`fa2::`), from the kernels' names."""
+    out = set()
+    for name in names:
+        if name.startswith("fa2::"):
+            args = name[name.index("<") + 1:].split(",")
+            dtype = "f32" if args[0].strip() == "float" else "bf16"
+            out.add((dtype, int(args[1].strip().removeprefix("(int)").rstrip(">"))))
+    return [list(w) for w in sorted(out)]
+
+
 def report_cuda_kernels() -> None:
     """Phase 2's line per CUDA kernel instantiation: ptxas's registers,
-    static shared memory and spills, and the HMMA count of its SASS."""
+    static shared memory and spills, and the HGMMA and HMMA counts of its
+    SASS; then the K1 / K2 widths still on mma.sync."""
     from srewd_tpu_torch.ops import _build
 
+    names = []
     for source in _build.SOURCES:
-        hmma = _build.sass_mma_counts(source)
+        counts = _build.sass_mma_counts(source)
         for r in _build.ptxas_report(source):
             name = kernel_name(r["name"])
-            count = None if hmma is None else hmma.get(r["kernel"], 0)
+            names.append(name)
+            got = None if counts is None else counts.get(r["kernel"], {"hgmma": 0, "hmma": 0})
+            need = tensor_core_op(name)
             emit({"phase": "build", "source": source, "kernel": name,
                   "registers": r["registers"], "smem_static_bytes": r["smem_static"],
                   "spill_store_bytes": r["spill_stores"], "spill_load_bytes": r["spill_loads"],
-                  "stack_bytes": r["stack"], "hmma": count})
-            check(count is None or count > 0 or not needs_hmma(name),
-                  f"{name} has no tensor-core instruction in its SASS")
+                  "stack_bytes": r["stack"], "hgmma": None if got is None else got["hgmma"],
+                  "hmma": None if got is None else got["hmma"], "requires": need})
+            check(got is None or need is None or got[need.lower()] > 0,
+                  f"{name} has no {need} instruction in its SASS")
+            check(not r["spill_stores"] and not r["spill_loads"],
+                  f"{name} spills registers ({r['spill_stores']} bytes stored)")
+    emit({"phase": "build", "mma_sync_widths": mma_sync_widths(names)})
 
 
 def main(argv: list) -> int:
@@ -3853,11 +4083,11 @@ def main(argv: list) -> int:
     bf16_steps = argv[1] if len(argv) == 2 and argv[0] == "--bf16-step" else None
     worker = argv[1] if len(argv) >= 3 and argv[0] == "--worker" else None
     if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"], ["--ddp"],
-                    ["--quality"], ["--extras"]) and not (
+                    ["--quality"], ["--extras"], ["--k2-wide"]) and not (
             (stress or bf16_steps or "").isdigit()) and worker not in ("train-main", "gloo-step"):
         print(f"chip_smoke: unknown arguments {argv}; the options are --profile, "
-              "--train-kernels, --serve, --ddp, --quality, --extras, --stress N and "
-              "--bf16-step N", file=sys.stderr)
+              "--train-kernels, --serve, --ddp, --quality, --extras, --k2-wide, --stress N "
+              "and --bf16-step N", file=sys.stderr)
         return 2
     import torch
 
@@ -3900,6 +4130,7 @@ def main(argv: list) -> int:
     fused_groupnorm._library()
     t_nvcc = time.perf_counter() - t0
     emit({"phase": "build", "sources": list(_build.SOURCES), "nvcc_sec": t_nvcc,
+          "nvcc_sec_by_source": dict(_build.BUILD_SECONDS),
           "build_dir": os.path.relpath(_build.BUILD_DIR, REPO)})
     report_cuda_kernels()
     os.makedirs(os.path.join(BUILD, "profile"), exist_ok=True)
@@ -3928,6 +4159,13 @@ def main(argv: list) -> int:
             phase6 = run_train_slice(torch, workdir, device)
             run_quality(torch, workdir, device, phase6,
                         {"attention_calls": sum(a.values()), "gn_calls": sum(n.values())})
+        say(smi)
+        return 0
+
+    if argv == ["--k2-wide"]:
+        a, _ = main_path_shapes(torch, full_width_model(torch, "phydiff", device), device)
+        torch.cuda.empty_cache()
+        compare_k2_wide(torch, a, device)
         say(smi)
         return 0
 

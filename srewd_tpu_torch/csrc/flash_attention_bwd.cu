@@ -1,56 +1,72 @@
 // Backward of exact single-head attention O = softmax(scale * Q K^T) V, for
-// Hopper (sm_90a), on the tensor cores: dQ, dK and dV from Q, K, V, O, dO
-// and the forward's row log-sum-exp.
+// Hopper (sm_90a), on the tensor cores by warpgroup MMA (wgmma) with TMA
+// loads and warp specialisation: dQ, dK and dV from Q, K, V, O, dO and the
+// forward's row log-sum-exp.
 //
 // Replaces the TPU kernel `_flash_bwd` in srewd_tpu/ops/flash_attention.py
 // (:173, body `_bwd_kernel` :131), which keeps the whole K and V of a sample
 // and three [QB, N] float32 slabs (P, dP, dS) in VMEM and carries dK / dV
 // from one query block to the next along a sequential grid axis. Hopper
 // blocks run in no order and a block has 227 KB of shared memory, so this
-// is the FA2 layout instead, in three launches:
+// is the FA2/FA3 layout instead, in three launches:
 //   * Δ_i = rowsum(dO_i ∘ O_i), one warp per row. The TPU kernel takes
 //     rowsum(P ∘ dP) over the whole key row; the two are equal in exact
 //     arithmetic and agree to float32 rounding, because O is the forward's
 //     float32 O also in bfloat16 (K1's `o32`, before its rounding: from the
 //     rounded O, Δ's error carried dQ beyond two bf16 ulps at D=512);
-//   * dK / dV: one block per (key tile, sample) loops over all query tiles
-//     and keeps its dK and dV tile in float32 registers. With the keys as
-//     the rows, S^T = K Q^T and dP^T = V dO^T come out in the accumulator
-//     layout, P^T = exp(scale S^T - LSE) and dS^T = P^T ∘ (dP^T - Δ) * scale
-//     are formed there, and they are the A operands of dV += P^T dO and
-//     dK += dS^T Q without passing through shared memory;
-//   * dQ: one block per (query tile, sample) loops over all key tiles,
-//     recomputes P and dS the same way and adds dS K into its dQ tile.
-//     Recomputing instead of adding into dQ with float32 atomics from the
-//     dK / dV kernel keeps the result deterministic (the trainer asks for
-//     determinism, and a resumed run must repeat the first one's losses) and
-//     needs no zeroed scratch buffer, at 14 instead of 10 B * N^2 * D flops.
+//   * dK / dV: one block per (key tile, sample, output slice) streams all
+//     query tiles and keeps its dK and dV tile in float32 registers. With
+//     the keys as the rows, S^T = K Q^T and dP^T = V dO^T are wgmma products
+//     with K and V from shared memory, P^T = exp(scale S^T - LSE) and
+//     dS^T = P^T ∘ (dP^T - Δ) * scale are formed on the accumulators, and
+//     they are the register A operands of dV += P^T dO and dK += dS^T Q;
+//   * dQ: one block per (query tile, sample, output slice) streams all key
+//     tiles, recomputes P and dS the same way and adds dS K into its dQ
+//     tile. Recomputing instead of adding into dQ with float32 atomics from
+//     the dK / dV kernel keeps the result deterministic (the trainer asks
+//     for determinism, and a resumed run must repeat the first one's losses)
+//     and needs no zeroed scratch buffer, at 14 instead of 10 B * N^2 * D
+//     flops.
 //
 // What bounds it: 10 * B * N^2 * D flops of the TPU's algorithm (14 in this
 // design) against 8 * B * N * D elements of device traffic (q, k, v, o, dO
 // read, dq, dk, dv written): operations at the tensor cores' rates, but for
 // the N=128 shapes, which are bound by the bytes.
-// Both main kernels use the building blocks of attention_mma.cuh: 3xTF32
-// mma for float32 (float32-accurate), bf16 mma for bfloat16 (P and dS
-// rounded to bf16 as the A operands, float32 sums), cp.async double
-// buffering of the tiles they stream (Q, dO, LSE, Δ in the dK / dV kernel;
-// K and V in the dQ kernel), and D split over WD warps at D >= 128 (dK/dV)
-// or D >= 256 (dQ), whose partial S and dP tiles are summed through shared
-// memory in a fixed order.
+// Both main kernels are built as K1 (flash_attention.cu) is, from
+// attention_wgmma.cuh: NW consumer warpgroups of 64 own rows and one
+// producer warpgroup, one thread of which loads the own tiles once and
+// streams the other side's tiles (Q, dO, LSE and Δ for dK / dV; K and V for
+// dQ) by TMA into a ring of two stages on mbarriers. Float32 takes 3xTF32
+// (float32-accurate): the own tiles are split into hi and lo parts once;
+// each landed tile is split, and the B operand of the second product
+// (dO and Q for dK / dV, K for dQ) also split and transposed, by the
+// consumer warpgroup, which then hands the raw stage back. bfloat16 reads
+// those B operands MN-major as they land and rounds P and dS to bf16 as the
+// A operands. Each tile's product into dK, dV or dQ is a fresh wgmma chain
+// added to the running sum in float32. Where a 64 x D float32 dK and dV
+// would not fit a thread's registers, the output is split into slices of DS
+// columns, one per block (blockIdx.z), each recomputing S and dP over the
+// whole D. Float32 at D >= 256, where the own tiles with their lo parts do
+// not fit shared memory, keeps the warp-level kernels on mma.sync
+// (fa2): the wgmma design for those widths, flash_bwd_stream_kernel (both
+// sides through the ring in 64-column chunks for every streamed tile, as
+// K1's flash_fwd_stream_kernel streams Q and K), takes 1.6-2x their time
+// on the card and is built only with SREWD_K2_WIDE_WGMMA defined
+// (chip_smoke.py --k2-wide measures both).
 //
 // Numerics: all sums are float32, inputs float32 or bfloat16, dQ / dK / dV
 // are written in the inputs' dtype, as `_flash_bwd` casts its float32
 // results. Layout: q, k, v are [B, N, D] with unit stride along D and any
 // batch and row stride, 16-byte aligned (the 1x1 qkv / kv convolutions'
-// slabs); o (float32) and dO are contiguous [B, N, D]; lse and the Δ scratch are
-// float32 [B, N]; the outputs are contiguous [B, N, D]. The wrapper
-// allocates every buffer and checks the alignment.
+// slabs); o (float32) and dO are contiguous [B, N, D]; lse and the Δ scratch
+// are float32 [B, N]; the outputs are contiguous [B, N, D]. The wrapper
+// allocates every buffer and checks the alignment; the C entry point
+// encodes the tensor maps.
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
-
-using namespace srewd;
 
 constexpr int kDeltaThreads = 256;
 
@@ -76,6 +92,751 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const T* __restrict__ dout,
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
 }
+
+namespace fa3 {
+
+using namespace srewd::wg;
+
+// The shapes both main kernels share: NW consumer warpgroups of 64 own rows
+// (BR), the other side streamed in tiles of BS rows, DS output columns a
+// block. Shared memory, every region a multiple of 1024 bytes:
+// own tiles A0, A1 [BR x D] (K and V, or Q and dO; float32: their hi parts
+// in place, then their lo parts) | LSE and Δ: the own rows' (dQ), or each
+// stage's (dK / dV) | ST stages of the streamed tiles S0, S1 [BS x D] (Q and
+// dO, or K and V) | float32: S0's and S1's hi and lo parts, then the split
+// and transposed B operands of the second product, [DS x 8 BS] each |
+// mbarriers.
+template <typename T, int D, int DS, int BS, int NW, bool DKDV, int ST>
+struct Cfg {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kEsz = sizeof(T);
+  static constexpr int kEpa = 128 / kEsz;
+  static constexpr int BR = 64 * NW;
+  static constexpr int kRows = BS;  // rows of a streamed tile
+  static constexpr int kSlices = D / DS;
+  static constexpr int kSSteps = D * kEsz / 32;
+  static constexpr int kThreads = 128 * (NW + 1);
+  static constexpr int kConsumers = 128 * NW;
+  static constexpr int kStages = ST;
+  static constexpr int kOwn = BR * D * kEsz;
+  static constexpr int kTile = BS * D * kEsz;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kSlot = 4 * BS > 128 ? 4 * BS : 128;  // a stage's LSE or Δ (dK / dV)
+  static constexpr int kStats = DKDV ? (2 * ST * kSlot + 1023) / 1024 * 1024 : 1024;
+  static constexpr int oA0lo = 2 * kOwn;  // float32
+  static constexpr int oStats = (kF32 ? 4 : 2) * kOwn;
+  static constexpr int oStage = oStats + kStats;
+  static constexpr int oSplit = oStage + kStages * kStage;  // float32: S0 hi, S0 lo, S1 hi, S1 lo
+  static constexpr int kT = DS * 8 * BS;                    // a transposed split operand
+  static constexpr int oT = oSplit + (kF32 ? 4 * kTile : 0);
+  static constexpr int oBar = oT + (kF32 ? (DKDV ? 2 : 1) * kT : 0);
+  static constexpr int kBytes = oBar + 16 * ST + 8 + srewd::kAlignSlack;
+  static_assert(D % DS == 0 && DS % 64 == 0 && BS % 16 == 0 && BR <= 128, "tile shape");
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
+};
+
+// The producer warpgroup's loads: the own tiles (and, for dQ, their LSE and
+// Δ) once on `own`, then every streamed tile into the ring.
+template <typename C, bool DKDV>
+__device__ __forceinline__ void produce(unsigned char* sm, uint64_t* full, uint64_t* empty,
+                                        uint64_t* own, const CUtensorMap* a0,
+                                        const CUtensorMap* a1, const CUtensorMap* s0,
+                                        const CUtensorMap* s1, const CUtensorMap* ml,
+                                        const CUtensorMap* md, int r_blk, int b, int n,
+                                        int tiles) {
+  constexpr int kAtoms = C::kOwn / (C::BR * 128);
+  mbar_expect_tx(own, 2 * C::kOwn + (DKDV ? 0 : 8 * C::BR));
+#pragma unroll
+  for (int a = 0; a < kAtoms; ++a) {
+    tma_load_3d(sm + a * C::BR * 128, a0, own, a * C::kEpa, r_blk, b);
+    tma_load_3d(sm + C::kOwn + a * C::BR * 128, a1, own, a * C::kEpa, r_blk, b);
+  }
+  if constexpr (!DKDV) {
+    tma_load_1d(sm + C::oStats, ml, own, b * n + r_blk);
+    tma_load_1d(sm + C::oStats + 512, md, own, b * n + r_blk);
+  }
+  constexpr int BS = C::kRows;
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % C::kStages;
+    if (it >= C::kStages) mbar_wait(&empty[s], ((it / C::kStages) - 1) & 1);
+    unsigned char* st = sm + C::oStage + s * C::kStage;
+    mbar_expect_tx(&full[s], 2 * C::kTile + (DKDV ? 8 * BS : 0));
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      tma_load_3d(st + a * BS * 128, s0, &full[s], a * C::kEpa, it * BS, b);
+      tma_load_3d(st + C::kTile + a * BS * 128, s1, &full[s], a * C::kEpa, it * BS, b);
+    }
+    if constexpr (DKDV) {
+      tma_load_1d(sm + C::oStats + 2 * s * C::kSlot, ml, &full[s], b * n + it * BS);
+      tma_load_1d(sm + C::oStats + (2 * s + 1) * C::kSlot, md, &full[s], b * n + it * BS);
+    }
+  }
+}
+
+// float32: the own tiles' hi parts in place and their lo parts beside them,
+// by the consumer warpgroups together
+template <typename C>
+__device__ __forceinline__ void split_own(unsigned char* sm) {
+  if constexpr (C::kF32) {
+    split_tile<2 * C::kOwn, C::kConsumers>(sm, sm, sm + C::oA0lo, threadIdx.x);
+    fence_proxy_async();
+    bar_sync(1, C::kConsumers);
+  }
+}
+
+// dK / dV: BR own keys, BS queries a streamed tile.
+template <typename T, int D, int DS, int BS, int NW, int ST>
+__global__ void __launch_bounds__(Cfg<T, D, DS, BS, NW, true, ST>::kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_lse,
+                      const __grid_constant__ CUtensorMap tm_delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int n, float scale) {
+  using C = Cfg<T, D, DS, BS, NW, true, ST>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = srewd::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::oBar);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* own = empty + C::kStages;
+  const int b = blockIdx.y, slice = blockIdx.z;
+  const int k_blk = blockIdx.x * C::BR;
+  const int tiles = (n + BS - 1) / BS;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * NW);
+    }
+    mbar_init(own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NW) {
+    if constexpr (NW > 1) reg_dealloc<24>();
+    if (threadIdx.x == 128 * NW)
+      produce<C, true>(sm, full, empty, own, &tm_k, &tm_v, &tm_q, &tm_do, &tm_lse, &tm_delta,
+                       k_blk, b, n, tiles);
+  } else {
+    if constexpr (NW > 1) reg_alloc<240>();
+    const int wgi = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int t = threadIdx.x & 3;
+    const uint32_t base = smem_u32(sm);
+    mbar_wait(own, 0);
+    split_own<C>(sm);
+
+    float acc_k[DS / 8][4], acc_v[DS / 8][4];
+    zero(acc_k);
+    zero(acc_v);
+    const float sl2 = scale * kLog2e;
+    constexpr int kLo = C::kF32 ? C::oA0lo : 0;  // own lo parts, from the hi parts
+
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % C::kStages;
+      mbar_wait(&full[s], (it / C::kStages) & 1);
+      unsigned char* raw = sm + C::oStage + s * C::kStage;
+      // this thread's query columns' LSE (log2 units) and Δ
+      const float* lse_s = reinterpret_cast<const float*>(sm + C::oStats + 2 * s * C::kSlot);
+      const float* dl_s =
+          reinterpret_cast<const float*>(sm + C::oStats + (2 * s + 1) * C::kSlot);
+      float lse_c[BS / 8][2], dl_c[BS / 8][2];
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          lse_c[j][e] = lse_s[8 * j + 2 * t + e] * kLog2e;
+          dl_c[j][e] = dl_s[8 * j + 2 * t + e];
+        }
+      uint32_t qb = base + C::oStage + s * C::kStage, dob = qb + C::kTile;
+      uint32_t qt = qb, dot = dob;  // B operands of dK += dS^T Q and dV += P^T dO
+      if constexpr (C::kF32) {
+        constexpr int NT = C::kConsumers;
+        const int ct = threadIdx.x;  // of the consumer warpgroups
+        if (it > 0) bar_sync(1, NT);  // the last tile's products are done with the splits
+        unsigned char* sp = sm + C::oSplit;
+        split_tile<C::kTile, NT>(raw, sp, sp + C::kTile, ct);
+        split_tile<C::kTile, NT>(raw + C::kTile, sp + 2 * C::kTile, sp + 3 * C::kTile, ct);
+        split_transposed<BS, DS, NT>(raw, sm + C::oT, slice * DS, ct);
+        split_transposed<BS, DS, NT>(raw + C::kTile, sm + C::oT + C::kT, slice * DS, ct);
+        fence_proxy_async();
+        bar_sync(1, NT);
+        mbar_arrive(&empty[s]);
+        qb = base + C::oSplit;
+        dob = qb + 2 * C::kTile;
+        qt = base + C::oT;
+        dot = qt + C::kT;
+      }
+
+      // S^T and dP^T: 64 keys x BS queries per warpgroup
+      float p[BS / 8][4], ds[BS / 8][4];
+      wgmma_fence();
+      mma_abt<T, BS, C::BR, C::kSSteps>(p, base, 64 * wgi, qb, kLo, C::kTile);
+      mma_abt<T, BS, C::BR, C::kSSteps>(ds, base + C::kOwn, 64 * wgi, dob, kLo, C::kTile);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(p);
+      fence_regs(ds);
+
+      const int q0 = it * BS;
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = i & 1;
+          const float pv =
+              q0 + 8 * j + 2 * t + e < n ? exp2f(p[j][i] * sl2 - lse_c[j][e]) : 0.f;
+          p[j][i] = pv;
+          ds[j][i] = pv * (ds[j][i] - dl_c[j][e]) * scale;
+        }
+      PFrag<T, BS / 8> fp, fd;
+      fp.set(p);
+      fd.set(ds);
+
+      const int col0 = C::kF32 ? 0 : slice * DS / 64;  // bf16: the slice's atom column
+      if constexpr (DS == 64) {  // both products in flight at once
+        float f[8][4], g[8][4];
+        wgmma_fence();
+        mma_pv<T, DS, BS / 8, BS>(f, fp, dot, col0);  // P^T dO
+        mma_pv<T, DS, BS / 8, BS>(g, fd, qt, col0);   // dS^T Q
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(f);
+        fence_regs(g);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc_v[j][i] += f[j][i];
+            acc_k[j][i] += g[j][i];
+          }
+      } else {  // one after the other, through one fresh accumulator of DS columns
+        float f2[DS / 8][4];
+        wgmma_fence();
+        mma_pv<T, DS, BS / 8, BS>(f2, fp, dot, col0);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(f2);
+#pragma unroll
+        for (int j = 0; j < DS / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc_v[j][i] += f2[j][i];
+        wgmma_fence();
+        mma_pv<T, DS, BS / 8, BS>(f2, fd, qt, col0);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(f2);
+#pragma unroll
+        for (int j = 0; j < DS / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc_k[j][i] += f2[j][i];
+      }
+      if constexpr (!C::kF32) mbar_arrive(&empty[s]);
+    }
+
+    const int row0 = k_blk + 64 * wgi + 16 * (tid >> 5);
+    const long long ob = static_cast<long long>(b) * n * D;
+    store_rows<T, DS / 8>(dk + ob, acc_k, D, row0, slice * DS, n, 1.f, 1.f);
+    store_rows<T, DS / 8>(dv + ob, acc_v, D, row0, slice * DS, n, 1.f, 1.f);
+  }
+}
+
+// dQ: BR own queries, BS keys a streamed tile.
+template <typename T, int D, int DS, int BS, int NW, int ST>
+__global__ void __launch_bounds__(Cfg<T, D, DS, BS, NW, false, ST>::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_lse,
+                    const __grid_constant__ CUtensorMap tm_delta, T* __restrict__ dq, int n,
+                    float scale) {
+  using C = Cfg<T, D, DS, BS, NW, false, ST>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = srewd::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::oBar);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* own = empty + C::kStages;
+  const int b = blockIdx.y, slice = blockIdx.z;
+  const int q_blk = blockIdx.x * C::BR;
+  const int tiles = (n + BS - 1) / BS;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * NW);
+    }
+    mbar_init(own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NW) {
+    if constexpr (NW > 1) reg_dealloc<24>();
+    if (threadIdx.x == 128 * NW)
+      produce<C, false>(sm, full, empty, own, &tm_q, &tm_do, &tm_k, &tm_v, &tm_lse, &tm_delta,
+                        q_blk, b, n, tiles);
+  } else {
+    if constexpr (NW > 1) reg_alloc<240>();
+    const int wgi = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int t = threadIdx.x & 3, g = (threadIdx.x & 31) >> 2;
+    const uint32_t base = smem_u32(sm);
+    mbar_wait(own, 0);
+    // rows g and g + 8 of this warp: LSE (log2 units) and Δ
+    const int r = 64 * wgi + 16 * (tid >> 5) + g;
+    const float* stats = reinterpret_cast<const float*>(sm + C::oStats);
+    const float row_lse[2] = {stats[r] * kLog2e, stats[r + 8] * kLog2e};
+    const float row_dl[2] = {stats[128 + r], stats[128 + r + 8]};
+    split_own<C>(sm);
+
+    float acc[DS / 8][4];
+    zero(acc);
+    const float sl2 = scale * kLog2e;
+    constexpr int kLo = C::kF32 ? C::oA0lo : 0;
+
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % C::kStages;
+      mbar_wait(&full[s], (it / C::kStages) & 1);
+      uint32_t kb = base + C::oStage + s * C::kStage, vb = kb + C::kTile;
+      uint32_t kt = kb;  // B operand of dQ += dS K
+      if constexpr (C::kF32) {
+        unsigned char* raw = sm + C::oStage + s * C::kStage;
+        constexpr int NT = C::kConsumers;
+        const int ct = threadIdx.x;  // of the consumer warpgroups
+        if (it > 0) bar_sync(1, NT);
+        unsigned char* sp = sm + C::oSplit;
+        split_tile<C::kTile, NT>(raw, sp, sp + C::kTile, ct);
+        split_tile<C::kTile, NT>(raw + C::kTile, sp + 2 * C::kTile, sp + 3 * C::kTile, ct);
+        split_transposed<BS, DS, NT>(raw, sm + C::oT, slice * DS, ct);
+        fence_proxy_async();
+        bar_sync(1, NT);
+        mbar_arrive(&empty[s]);
+        kb = base + C::oSplit;
+        vb = kb + 2 * C::kTile;
+        kt = base + C::oT;
+      }
+
+      // S and dP: 64 queries x BS keys per warpgroup
+      float p[BS / 8][4], ds[BS / 8][4];
+      wgmma_fence();
+      mma_abt<T, BS, C::BR, C::kSSteps>(p, base, 64 * wgi, kb, kLo, C::kTile);
+      mma_abt<T, BS, C::BR, C::kSSteps>(ds, base + C::kOwn, 64 * wgi, vb, kLo, C::kTile);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(p);
+      fence_regs(ds);
+
+      const int k0 = it * BS;
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i >> 1;
+          const float pv =
+              k0 + 8 * j + 2 * t + (i & 1) < n ? exp2f(p[j][i] * sl2 - row_lse[h]) : 0.f;
+          ds[j][i] = pv * (ds[j][i] - row_dl[h]) * scale;
+        }
+      PFrag<T, BS / 8> fd;
+      fd.set(ds);
+
+      const int col0 = C::kF32 ? 0 : slice * DS / 64;
+      float f[DS / 8][4];
+      wgmma_fence();
+      mma_pv<T, DS, BS / 8, BS>(f, fd, kt, col0);  // dS K, a fresh chain
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(f);
+      if constexpr (!C::kF32) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int j = 0; j < DS / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] += f[j][i];
+    }
+
+    const int row0 = q_blk + 64 * wgi + 16 * (tid >> 5);
+    store_rows<T, DS / 8>(dq + static_cast<long long>(b) * n * D, acc, D, row0, slice * DS, n,
+                          1.f, 1.f);
+  }
+}
+
+// The tensor maps of both main kernels: the dK / dV kernel's own K and V
+// (boxes of KR rows) and streamed Q, dO, LSE and Δ (KB rows), the dQ
+// kernel's own Q, dO, LSE and Δ (QR rows) and streamed K and V (QB rows).
+struct Maps {
+  CUtensorMap k_own, v_own, q_str, do_str, lse_str, dl_str;
+  CUtensorMap q_own, do_own, k_str, v_str, lse_own, dl_own;
+};
+
+inline cudaError_t encode(Maps& m, bool f32, int d, const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse, const float* delta, int b, int n,
+                          const Strides& st, int kr, int kb, int qr, int qb) {
+  const long long rows = static_cast<long long>(b) * n;
+  cudaError_t err = srewd::map_3d(&m.k_own, k, f32, d, n, b, st.k_r, st.k_b, kr);
+  if (err == cudaSuccess) err = srewd::map_3d(&m.v_own, v, f32, d, n, b, st.v_r, st.v_b, kr);
+  if (err == cudaSuccess) err = srewd::map_3d(&m.q_str, q, f32, d, n, b, st.q_r, st.q_b, kb);
+  if (err == cudaSuccess) err = srewd::map_3d(&m.do_str, dout, f32, d, n, b, d, n * d, kb);
+  if (err == cudaSuccess) err = srewd::map_1d(&m.lse_str, lse, rows, kb);
+  if (err == cudaSuccess) err = srewd::map_1d(&m.dl_str, delta, rows, kb);
+  if (err == cudaSuccess) err = srewd::map_3d(&m.q_own, q, f32, d, n, b, st.q_r, st.q_b, qr);
+  if (err == cudaSuccess) err = srewd::map_3d(&m.do_own, dout, f32, d, n, b, d, n * d, qr);
+  if (err == cudaSuccess) err = srewd::map_3d(&m.k_str, k, f32, d, n, b, st.k_r, st.k_b, qb);
+  if (err == cudaSuccess) err = srewd::map_3d(&m.v_str, v, f32, d, n, b, st.v_r, st.v_b, qb);
+  if (err == cudaSuccess) err = srewd::map_1d(&m.lse_own, lse, rows, qr);
+  if (err == cudaSuccess) err = srewd::map_1d(&m.dl_own, delta, rows, qr);
+  return err;
+}
+
+// dK/dV tiles <KS output columns, KB queries a tile, KW warpgroups> and dQ
+// tiles <QS, QB keys a tile, QW> of one head width, each with ST stages.
+template <typename T, int D, int KS, int KB, int KW, int QS, int QB, int QW, int ST>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv, int b,
+                   int n, const Strides& st, float scale, cudaStream_t stream) {
+  using CK = Cfg<T, D, KS, KB, KW, true, ST>;
+  using CQ = Cfg<T, D, QS, QB, QW, false, ST>;
+  Maps m;
+  cudaError_t err = encode(m, CK::kF32, D, q, k, v, dout, lse, delta, b, n, st, CK::BR, KB,
+                           CQ::BR, QB);
+  if (err != cudaSuccess) return err;
+
+  auto dkdv = flash_bwd_dkdv_kernel<T, D, KS, KB, KW, ST>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, CK::kBytes);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3((n + CK::BR - 1) / CK::BR, b, CK::kSlices), CK::kThreads, CK::kBytes, stream>>>(
+      m.k_own, m.v_own, m.q_str, m.do_str, m.lse_str, m.dl_str, static_cast<T*>(dk),
+      static_cast<T*>(dv), n, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dqk = flash_bwd_dq_kernel<T, D, QS, QB, QW, ST>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, CQ::kBytes);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((n + CQ::BR - 1) / CQ::BR, b, CQ::kSlices), CQ::kThreads, CQ::kBytes, stream>>>(
+      m.q_own, m.do_own, m.k_str, m.v_str, m.lse_own, m.dl_own, static_cast<T*>(dq), n, scale);
+  return cudaGetLastError();
+}
+
+// Float32 at D >= 256, where the own tiles with their lo parts (256 KB at
+// D=256, 512 KB at D=512 for K and V of 64 rows) do not fit shared memory.
+// The own tiles are the A operands of S and dP, so they are read from
+// shared memory into registers, k-step by k-step, and split there (the
+// TF32 register A operand): they need no lo parts and no split pass. With
+// RES they stay in shared memory, raw, for the whole block (D=256: 128
+// KB); else their chunks come through the ring with the streamed ones, for
+// every streamed tile (again from L2). For every streamed tile of BS rows,
+// its chunks of DC = 64 columns land in the ring; the consumers split each
+// in place, its lo parts beside the ring, and add its S and dP (fresh
+// 3xTF32 chains of 8 k-steps) into S and dP in float32, as
+// flash_fwd_stream_kernel does for S. The chunks inside the block's output
+// slice of DS columns are also split and transposed, before their in-place
+// split, into the B operands of the second products (Q^T and dO^T for
+// dK / dV, K^T for dQ), which run as in the kernels above, 64 output
+// columns a chain. One consumer warpgroup of BR = 64 own rows. Shared
+// memory: RES: the own tiles A0, A1 [BR x D] | ST stages of (not RES: the
+// own chunks A0, A1 [BR x DC] and) the streamed chunks S0, S1 [BS x DC] |
+// the streamed chunks' lo parts | the split, transposed S0 (dK / dV: and
+// S1) of the slice, [DS x 8 BS] each | LSE and Δ: the own rows' (dQ), or
+// two streamed tiles' (dK / dV) | mbarriers.
+template <int D, int DS, int BS, bool DKDV, int ST, bool RES>
+struct StreamCfg {
+  static constexpr int DC = 64;
+  static constexpr int kChunks = D / DC;
+  static constexpr int BR = 64;
+  static constexpr int kSlices = D / DS;
+  static constexpr int kThreads = 256;
+  static constexpr int kOwn = RES ? BR * D * 4 : 0;  // a resident own tile
+  static constexpr int kA = RES ? 0 : BR * DC * 4;   // an own chunk in a stage
+  static constexpr int kS = BS * DC * 4;             // a streamed chunk
+  static constexpr int oS = 2 * kA;                  // the streamed chunks in a stage
+  static constexpr int kStage = 2 * kA + 2 * kS;
+  static constexpr int oStage = 2 * kOwn;
+  static constexpr int oLo = oStage + ST * kStage;
+  static constexpr int kT = DS * 8 * BS;
+  static constexpr int oT = oLo + 2 * kS;
+  static constexpr int kSlot = 4 * BS > 128 ? 4 * BS : 128;  // a tile's LSE or Δ (dK / dV)
+  static constexpr int oStats = oT + (DKDV ? 2 : 1) * kT;
+  static constexpr int oBar = oStats + 1024;
+  static constexpr int kBytes = oBar + 16 * ST + 8 + srewd::kAlignSlack;
+  static_assert(D % DS == 0 && DS % DC == 0 && BS == 32 && 4 * kSlot <= 1024, "tile shape");
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
+};
+
+// acc += P B over the 8 KT rows of a transposed split B tile `bt` of NC rows
+// (TF32), 64 columns a fresh chain
+template <int NC, int KT>
+__device__ __forceinline__ void add_pv(float (&acc)[NC / 8][4], PFrag<float, KT>& p,
+                                       uint32_t bt) {
+#pragma unroll
+  for (int ch = 0; ch < NC / 64; ++ch) {
+    float f[8][4];
+    wgmma_fence();
+    mma_pv<float, NC, KT, 8 * KT, 1>(f, p, bt, 0, ch);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(f);
+    fence_regs(p.hi);
+    fence_regs(p.lo);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[8 * ch + j][i] += f[j][i];
+  }
+}
+
+// ps = A0 S0^T and pd = A1 S1^T over one chunk (8 k-steps), fresh chains:
+// A0, A1 raw K-major tiles of R rows at a0, a1 whose chunk starts at byte
+// `b0` of a row, split in registers (two k-steps' parts in flight); S0, S1
+// split K-major tiles of 32 rows at shared addresses s0, s1, lo parts `lo`
+// bytes on.
+template <int R>
+__device__ __forceinline__ void chunk_products(float (&ps)[4][4], float (&pd)[4][4],
+                                               const unsigned char* a0, const unsigned char* a1,
+                                               int b0, uint32_t s0, uint32_t s1, uint32_t lo) {
+  uint32_t h[2][2][4], l[2][2][4];  // [k-step parity][operand]
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int u = kk & 1;
+    a_frag<R>(a0, b0 + 32 * kk, h[u][0], l[u][0]);
+    a_frag<R>(a1, b0 + 32 * kk, h[u][1], l[u][1]);
+    const uint32_t k0 = kstep_addr<32>(s0, 0, kk), k1 = kstep_addr<32>(s1, 0, kk);
+    wgmma_fence();
+    RS<float, 32>::mma(&ps[0][0], l[u][0], desc(k0), kk > 0);
+    RS<float, 32>::mma(&ps[0][0], h[u][0], desc(k0 + lo), 1);
+    RS<float, 32>::mma(&ps[0][0], h[u][0], desc(k0), 1);
+    RS<float, 32>::mma(&pd[0][0], l[u][1], desc(k1), kk > 0);
+    RS<float, 32>::mma(&pd[0][0], h[u][1], desc(k1 + lo), 1);
+    RS<float, 32>::mma(&pd[0][0], h[u][1], desc(k1), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(h[u ^ 1]);  // the last k-step's parts: its products are done
+    fence_regs(l[u ^ 1]);
+  }
+  wgmma_wait();
+  fence_regs(ps);
+  fence_regs(pd);
+  fence_regs(h[1]);
+  fence_regs(l[1]);
+}
+
+// DKDV: own K and V (a0, a1), streamed Q and dO (s0, s1), outputs dK (g0)
+// and dV (g1). Else: own Q and dO, streamed K and V, output dQ (g0).
+template <int D, int DS, int BS, bool DKDV, int ST, bool RES>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_stream_kernel(const __grid_constant__ CUtensorMap tm_a0,
+                        const __grid_constant__ CUtensorMap tm_a1,
+                        const __grid_constant__ CUtensorMap tm_s0,
+                        const __grid_constant__ CUtensorMap tm_s1,
+                        const __grid_constant__ CUtensorMap tm_lse,
+                        const __grid_constant__ CUtensorMap tm_delta, float* __restrict__ g0,
+                        float* __restrict__ g1, int n, float scale) {
+  using C = StreamCfg<D, DS, BS, DKDV, ST, RES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = srewd::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::oBar);
+  uint64_t* empty = full + ST;
+  uint64_t* own = empty + ST;  // the resident own tiles; dQ: the own rows' LSE and Δ
+  const int b = blockIdx.y, slice = blockIdx.z;
+  const int r_blk = blockIdx.x * C::BR;
+  const int tiles = (n + BS - 1) / BS;
+  constexpr bool kOwnBar = RES || !DKDV;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      if constexpr (kOwnBar) {
+        mbar_expect_tx(own, 2 * C::kOwn + (DKDV ? 0 : 8 * C::BR));
+        if constexpr (RES) {
+#pragma unroll
+          for (int a = 0; a < D / 32; ++a) {
+            tma_load_3d(sm + a * C::BR * 128, &tm_a0, own, 32 * a, r_blk, b);
+            tma_load_3d(sm + C::kOwn + a * C::BR * 128, &tm_a1, own, 32 * a, r_blk, b);
+          }
+        }
+        if constexpr (!DKDV) {
+          tma_load_1d(sm + C::oStats, &tm_lse, own, b * n + r_blk);
+          tma_load_1d(sm + C::oStats + 512, &tm_delta, own, b * n + r_blk);
+        }
+      }
+      for (int job = 0; job < tiles * C::kChunks; ++job) {
+        const int s = job % ST, it = job / C::kChunks, c = job % C::kChunks;
+        if (job >= ST) mbar_wait(&empty[s], ((job / ST) - 1) & 1);
+        unsigned char* st = sm + C::oStage + s * C::kStage;
+        const bool stats = DKDV && c == 0;  // the tile's LSE and Δ come with its first chunk
+        mbar_expect_tx(&full[s], C::kStage + (stats ? 8 * BS : 0));
+#pragma unroll
+        for (int a = 0; a < C::DC / 32; ++a) {
+          const int col = c * C::DC + 32 * a;
+          if constexpr (!RES) {
+            tma_load_3d(st + a * C::BR * 128, &tm_a0, &full[s], col, r_blk, b);
+            tma_load_3d(st + C::kA + a * C::BR * 128, &tm_a1, &full[s], col, r_blk, b);
+          }
+          tma_load_3d(st + C::oS + a * BS * 128, &tm_s0, &full[s], col, it * BS, b);
+          tma_load_3d(st + C::oS + C::kS + a * BS * 128, &tm_s1, &full[s], col, it * BS, b);
+        }
+        if (stats) {
+          const int slot = 2 * (it & 1) * C::kSlot;
+          tma_load_1d(sm + C::oStats + slot, &tm_lse, &full[s], b * n + it * BS);
+          tma_load_1d(sm + C::oStats + slot + C::kSlot, &tm_delta, &full[s], b * n + it * BS);
+        }
+      }
+    }
+  } else {
+    const int tid = threadIdx.x, t = tid & 3, g = (tid & 31) >> 2;
+    const uint32_t base = smem_u32(sm);
+    const float sl2 = scale * kLog2e;
+    const int cs = slice * (DS / C::DC);  // the slice's first chunk
+    float row_lse[2] = {0.f, 0.f}, row_dl[2] = {0.f, 0.f};  // dQ: rows g and g + 8
+    if constexpr (kOwnBar) mbar_wait(own, 0);
+    if constexpr (!DKDV) {
+      const int r = 16 * (tid >> 5) + g;
+      const float* stats = reinterpret_cast<const float*>(sm + C::oStats);
+      row_lse[0] = stats[r] * kLog2e;
+      row_lse[1] = stats[r + 8] * kLog2e;
+      row_dl[0] = stats[128 + r];
+      row_dl[1] = stats[128 + r + 8];
+    }
+
+    float acc0[DS / 8][4], acc1[DKDV ? DS / 8 : 1][4];
+    zero(acc0);
+    zero(acc1);
+    int job = 0;
+    for (int it = 0; it < tiles; ++it) {
+      // S and dP (dK / dV: S^T and dP^T), 64 own rows x BS, summed over the chunks
+      float sc[BS / 8][4], dp[BS / 8][4];
+      zero(sc);
+      zero(dp);
+      for (int c = 0; c < C::kChunks; ++c, ++job) {
+        const int s = job % ST;
+        mbar_wait(&full[s], (job / ST) & 1);
+        unsigned char* st = sm + C::oStage + s * C::kStage;
+        unsigned char* str = st + C::oS;  // the streamed chunks
+        bar_sync(1, 128);  // the last products are done with the lo parts and the slice's B
+        if (c >= cs && c < cs + DS / C::DC) {
+          const int r0 = C::DC * (c - cs);
+          split_transposed<BS, C::DC, 128, DS>(str, sm + C::oT, 0, tid, r0);
+          if constexpr (DKDV)
+            split_transposed<BS, C::DC, 128, DS>(str + C::kS, sm + C::oT + C::kT, 0, tid, r0);
+          bar_sync(1, 128);  // read before the split below overwrites the chunk
+        }
+        split_tile<2 * C::kS, 128>(str, str, sm + C::oLo, tid);
+        fence_proxy_async();
+        bar_sync(1, 128);
+        const uint32_t sb = smem_u32(str);
+        float ps[BS / 8][4], pd[BS / 8][4];
+        if constexpr (RES)
+          chunk_products<C::BR>(ps, pd, sm, sm + C::kOwn, 256 * c, sb, sb + C::kS,
+                                base + C::oLo - sb);
+        else
+          chunk_products<C::BR>(ps, pd, st, st + C::kA, 0, sb, sb + C::kS, base + C::oLo - sb);
+        mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int j = 0; j < BS / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            sc[j][i] += ps[j][i];
+            dp[j][i] += pd[j][i];
+          }
+      }
+
+      const int s0 = it * BS;
+      const uint32_t bt = base + C::oT;
+      if constexpr (DKDV) {
+        const float* lse_s =
+            reinterpret_cast<const float*>(sm + C::oStats + 2 * (it & 1) * C::kSlot);
+        const float* dl_s = lse_s + C::kSlot / 4;
+#pragma unroll
+        for (int j = 0; j < BS / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = 8 * j + 2 * t + (i & 1);  // query of this column in the tile
+            const float pv =
+                s0 + col < n ? exp2f(sc[j][i] * sl2 - lse_s[col] * kLog2e) : 0.f;
+            sc[j][i] = pv;
+            dp[j][i] = pv * (dp[j][i] - dl_s[col]) * scale;
+          }
+        PFrag<float, BS / 8> fp;
+        fp.set(sc);
+        add_pv<DS, BS / 8>(acc1, fp, bt + C::kT);  // dV += P^T dO
+        PFrag<float, BS / 8> fd;
+        fd.set(dp);
+        add_pv<DS, BS / 8>(acc0, fd, bt);  // dK += dS^T Q
+      } else {
+#pragma unroll
+        for (int j = 0; j < BS / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int h = i >> 1;
+            const float pv = s0 + 8 * j + 2 * t + (i & 1) < n
+                                 ? exp2f(sc[j][i] * sl2 - row_lse[h]) : 0.f;
+            dp[j][i] = pv * (dp[j][i] - row_dl[h]) * scale;
+          }
+        PFrag<float, BS / 8> fd;
+        fd.set(dp);
+        add_pv<DS, BS / 8>(acc0, fd, bt);  // dQ += dS K
+      }
+    }
+
+    const int row0 = r_blk + 16 * (tid >> 5);
+    const long long ob = static_cast<long long>(b) * n * D;
+    store_rows<float, DS / 8>(g0 + ob, acc0, D, row0, slice * DS, n, 1.f, 1.f);
+    if constexpr (DKDV) store_rows<float, DS / 8>(g1 + ob, acc1, D, row0, slice * DS, n, 1.f, 1.f);
+  }
+}
+
+// float32 at D >= 256: the dK / dV and dQ stream kernels, DS output columns
+// a block, BS rows a streamed tile, ST stages, the own tiles resident (RES)
+// or streamed.
+template <int D, int DS, int BS, int ST, bool RES>
+cudaError_t launch_stream(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                          int b, int n, const Strides& st, float scale, cudaStream_t stream) {
+  using CK = StreamCfg<D, DS, BS, true, ST, RES>;
+  using CQ = StreamCfg<D, DS, BS, false, ST, RES>;
+  Maps m;
+  cudaError_t err =
+      encode(m, true, D, q, k, v, dout, lse, delta, b, n, st, CK::BR, BS, CQ::BR, BS);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + CK::BR - 1) / CK::BR, b, CK::kSlices);
+
+  auto dkdv = flash_bwd_stream_kernel<D, DS, BS, true, ST, RES>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, CK::kBytes);
+  if (err != cudaSuccess) return err;
+  dkdv<<<grid, CK::kThreads, CK::kBytes, stream>>>(m.k_own, m.v_own, m.q_str, m.do_str,
+                                                   m.lse_str, m.dl_str, static_cast<float*>(dk),
+                                                   static_cast<float*>(dv), n, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dqk = flash_bwd_stream_kernel<D, DS, BS, false, ST, RES>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, CQ::kBytes);
+  if (err != cudaSuccess) return err;
+  dqk<<<grid, CQ::kThreads, CQ::kBytes, stream>>>(m.q_own, m.do_own, m.k_str, m.v_str,
+                                                  m.lse_own, m.dl_own, static_cast<float*>(dq),
+                                                  nullptr, n, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace fa3
+
+// The warp-level design on mma.sync (attention_mma.cuh), kept for the widths that
+// `dispatch` names below: float32 at D=256 and 512, where fa3's stream
+// kernels take 1.6-2x its time (chip_smoke.py --k2-wide).
+namespace fa2 {
+
+using namespace srewd;
 
 // A block: WM warps along its own rows (16 WM keys for dK/dV, queries for
 // dQ), WD warps along D, and BS rows of the other side per streamed tile.
@@ -273,19 +1034,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, NO>(dq + (long long)b * n * D, acc, D, q0 + wm * 16, wd * DW, n, 1.f, 1.f);
 }
 
-// dK/dV tiles (WM, WD, BS = queries per streamed tile) and dQ tiles (WM, WD,
-// BS = keys per streamed tile) of one head width.
 template <typename T, int D, int KM, int KD, int KS, int QM, int QD, int QS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
                    void* dv, int b, int n, Strides st, float scale, cudaStream_t stream) {
-  const int rows = b * n;
-  flash_bwd_delta_kernel<T><<<(rows * 32 + kDeltaThreads - 1) / kDeltaThreads, kDeltaThreads,
-                              0, stream>>>(static_cast<const float*>(o),
-                                           static_cast<const T*>(dout), delta, rows, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
+  cudaError_t err;
   using CK = Bwd<T, D, KM, KD, KS>;
   auto dkdv = flash_bwd_dkdv_kernel<T, D, KM, KD, KS>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CK::kBytes);
@@ -306,40 +1059,84 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), n, st, scale);
   return cudaGetLastError();
 }
+}  // namespace fa2
 
-// Tiles per head width, the same for both dtypes; float32 shared memory in
-// brackets. A warp holds at most 64 columns of dK and of dV (128 float32
-// registers a thread, plus a fresh 64-column tile sum in gemm_acc_kn), so
-// the dK/dV kernel splits D into D / 64 slices; the dQ kernel holds one
-// 16 x DW dQ tile and splits from D=256 on.
-//   D=64:  dK/dV 4 x 1, 32 queries a tile (69 KB); dQ 4 x 1, 32 keys (70 KB):
-//          two or three blocks per SM, N=8192 gives 128 blocks per sample.
-//          (dQ with 64 keys a tile spilled 12 bytes of registers and was
-//          no faster.)
-//   D=128: dK/dV 2 x 2, 32 queries (116 KB, one block per SM); dQ 2 x 1,
-//          32 keys (99 KB): N=2048 at B=4 gives 256 blocks for each.
-//   D=256: dK/dV 1 x 4, 32 queries (179 KB); dQ 1 x 4, 32 keys (179 KB):
-//          16 own rows a block, so N=512 at B=4 gives 128 blocks.
-//   D=512: dK/dV 1 x 8, 16 queries (210 KB); dQ 1 x 8, 16 keys (210 KB):
-//          N=512 at B=4 gives 128 blocks, one per SM; double-buffered
-//          16-row tiles of two operands already take 129 KB.
+// Tiles per head width: fa3::launch<T, D, dK/dV <DS, BS queries a tile, NW>,
+// dQ <DS, BS keys a tile, NW>, ST stages>, shared memory in brackets (dK/dV;
+// dQ).
+//   bfloat16
+//     D=64:  dK/dV 64, 64, 2; dQ 64, 64, 2; ST 4 (99 KB; 98 KB).
+//     D=128: dK/dV 128, 32, 2; dQ 128, 64, 2; ST 3 (114 KB; 162 KB).
+//     D=256: dK/dV 128, 32, 1; dQ 128, 32, 1; ST 2 (130 KB; 130 KB): two
+//            slices.
+//     D=512: dK/dV 128, 16, 1; dQ 128, 16, 1; ST 2 (194 KB; 194 KB): four
+//            slices; the own K and V (Q and dO) alone are 128 KB.
+//   float32 (the consumer warpgroups split the landed tiles together)
+//     D=64:  dK/dV 64, 32, 2; dQ 64, 32, 2; ST 2 (226 KB; 210 KB): the own
+//            tiles of 128 rows with their lo parts are 128 KB.
+//     D=128: dK/dV 128, 16, 1; dQ 128, 16, 1; ST 2 (226 KB; 210 KB): one
+//            warpgroup's own tiles with their lo parts are already 128 KB, so
+//            the streamed tiles are 16 rows (n16 products).
+//     D=256, D=512: the mma.sync kernels (fa2 above), unless
+//            SREWD_K2_WIDE_WGMMA is defined: then fa3::launch_stream<D, DS,
+//            BS 32, ST 3, RES>, D=256 DS 64 with the own tiles resident
+//            (226 KB; 210 KB), D=512 DS 128 with them streamed (226 KB;
+//            194 KB). On the card the stream kernels take 1.6-2x the
+//            mma.sync kernels' time (chip_smoke.py --k2-wide): each block
+//            runs every streamed tile through D / 64 chunks of small (n32)
+//            products one after the other, and 64 own rows with output
+//            slices leave 32-128 blocks at the main path's shapes.
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                     void* dv, int b, int n, Strides st, float scale, cudaStream_t stream) {
+                     void* dv, int b, int n, const Strides& st, float scale,
+                     cudaStream_t stream) {
+  const int rows = b * n;
+  flash_bwd_delta_kernel<T><<<(rows * 32 + kDeltaThreads - 1) / kDeltaThreads, kDeltaThreads,
+                              0, stream>>>(static_cast<const float*>(o),
+                                           static_cast<const T*>(dout), delta, rows, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr bool f32 = sizeof(T) == 4;
   switch (d) {
     case 64:
-      return launch<T, 64, 4, 1, 32, 4, 1, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, n,
-                                               st, scale, stream);
+      if constexpr (f32)
+        return fa3::launch<T, 64, 64, 32, 2, 64, 32, 2, 2>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                                           b, n, st, scale, stream);
+      else
+        return fa3::launch<T, 64, 64, 64, 2, 64, 64, 2, 4>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                                           b, n, st, scale, stream);
     case 128:
-      return launch<T, 128, 2, 2, 32, 2, 1, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, n,
-                                                st, scale, stream);
+      if constexpr (f32)
+        return fa3::launch<T, 128, 128, 16, 1, 128, 16, 1, 2>(q, k, v, dout, lse, delta, dq, dk,
+                                                              dv, b, n, st, scale, stream);
+      else
+        return fa3::launch<T, 128, 128, 32, 2, 128, 64, 2, 3>(q, k, v, dout, lse, delta, dq, dk,
+                                                              dv, b, n, st, scale, stream);
     case 256:
-      return launch<T, 256, 1, 4, 32, 1, 4, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, n,
-                                                st, scale, stream);
+      if constexpr (f32)
+#ifdef SREWD_K2_WIDE_WGMMA
+        return fa3::launch_stream<256, 64, 32, 3, true>(q, k, v, dout, lse, delta, dq, dk, dv, b,
+                                                        n, st, scale, stream);
+#else
+        return fa2::launch<T, 256, 1, 4, 32, 1, 4, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                                       b, n, st, scale, stream);
+#endif
+      else
+        return fa3::launch<T, 256, 128, 32, 1, 128, 32, 1, 2>(q, k, v, dout, lse, delta, dq, dk,
+                                                           dv, b, n, st, scale, stream);
     case 512:
-      return launch<T, 512, 1, 8, 16, 1, 8, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, n,
-                                                st, scale, stream);
+      if constexpr (f32)
+#ifdef SREWD_K2_WIDE_WGMMA
+        return fa3::launch_stream<512, 128, 32, 3, false>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                                          b, n, st, scale, stream);
+#else
+        return fa2::launch<T, 512, 1, 8, 16, 1, 8, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                                       b, n, st, scale, stream);
+#endif
+      else
+        return fa3::launch<T, 512, 128, 16, 1, 128, 16, 1, 2>(q, k, v, dout, lse, delta, dq, dk,
+                                                           dv, b, n, st, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -352,8 +1149,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, of q, k, v, dout, dq, dk and dv; `o` is
 // the forward's O in float32 [B, N, D] (bfloat16: K1's `o32`, before its
 // rounding). `delta` is float32 [B, N] scratch.
-// Returns the cudaError_t of the launches (cudaGetLastError() after each),
-// 0 on success. Does not synchronise.
+// Returns the cudaError_t of the tensor maps' encoding or of the launches
+// (cudaGetLastError() after each), 0 on success. Does not synchronise.
 int srewd_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const float* lse, float* delta, void* dq,
                               void* dk, void* dv, int b, int n, int d, long long q_b,

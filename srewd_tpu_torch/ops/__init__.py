@@ -53,6 +53,20 @@ def use_op(x: torch.Tensor) -> bool:
     return tracing and not _FORCE_PLAIN.get() and x.device.type in ("cpu", "cuda")
 
 
+def launch(device: torch.device, fn, *args) -> int:
+    """fn(*args, stream): a kernel's C entry point called with `device`
+    current and its current CUDA stream as the integer handle the C
+    interface takes. The stream comes from PyTorch's raw getter, as its
+    compiler's generated code calls it: it builds no Stream object, unlike
+    torch.cuda.current_stream().cuda_stream, and costs far less host time;
+    the device switch happens only where `device` is not current already
+    (it costs host time on every call)."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+
+
 def use_plain(x: torch.Tensor) -> bool:
     """True when a wrapper must take its plain version for `x`.
 

@@ -7,13 +7,15 @@ use, into `build/srewd_tpu_torch/` beside the package (gitignored), and the
 library's name carries a hash of the source, of every header in `csrc/` and
 of the flags, so an edited source or header is rebuilt and a stale library
 is never loaded. A failed build raises with nvcc's stderr. `build_all`
-starts one nvcc per source at once, so the sources build in parallel.
+starts one nvcc per source at once, so the sources build in parallel, and
+keeps each one's seconds in `BUILD_SECONDS`.
 
 nvcc runs with `-Xptxas -v`; its report (registers, shared memory and spill
 bytes of every kernel instantiation) is kept beside the library as
 `<library>.ptxas.txt` and read back by `ptxas_report`. `sass_mma_counts`
-counts the tensor-core instructions (HMMA) of each kernel in the built
-library's SASS, where `cuobjdump` can be found.
+counts the tensor-core instructions of each kernel in the built library's
+SASS, where `cuobjdump` can be found: HGMMA (warpgroup MMA, wgmma) and
+HMMA (warp MMA, mma.sync), parsed by `parse_sass_mma`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -39,6 +42,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict = {}
+BUILD_SECONDS: dict = {}  # {source: nvcc's seconds} of the last build_all, 0.0 if built before
 
 
 def _find(tool: str):
@@ -82,11 +86,12 @@ def _start(name: str):
     return proc, tmp, lib_path
 
 
-def _finish(name: str, job) -> None:
+def _finish(name: str, job, out: str = None, err: str = None) -> None:
     if job is None:
         return
     proc, tmp, lib_path = job
-    out, err = proc.communicate()
+    if out is None:
+        out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {name}:\n{err}")
     with open(f"{lib_path}.ptxas.txt", "w") as f:
@@ -95,11 +100,28 @@ def _finish(name: str, job) -> None:
 
 
 def build_all(names=SOURCES) -> None:
-    """Build every named source, all nvcc processes running at once."""
+    """Build every named source, all nvcc processes running at once; each
+    one's seconds go into BUILD_SECONDS."""
+    t0 = time.perf_counter()
     jobs = {name: _start(name) for name in names}
+    done = {}
+
+    def wait(name, job):
+        out, err = job[0].communicate()
+        done[name] = (out, err, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=wait, args=(name, job), daemon=True)
+               for name, job in jobs.items() if job is not None]
     try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        BUILD_SECONDS.clear()
         for name, job in jobs.items():
-            _finish(name, job)
+            out, err, sec = done.get(name, (None, None, 0.0))
+            BUILD_SECONDS[name] = sec
+            _finish(name, job, out, err)
     finally:
         for job in jobs.values():
             if job is not None and job[0].poll() is None:
@@ -180,20 +202,29 @@ def _cuobjdump():
     return tool
 
 
+def parse_sass_mma(text: str) -> dict:
+    """{mangled kernel: {"hgmma": n, "hmma": m}} from the text of `cuobjdump
+    -sass`: the warpgroup (HGMMA, wgmma) and warp (HMMA, mma.sync)
+    tensor-core instructions of each function."""
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), {"hgmma": 0, "hmma": 0})
+        elif cur is not None:
+            if re.search(r"\bHGMMA\b", line):
+                cur["hgmma"] += 1
+            elif re.search(r"\bHMMA\b", line):
+                cur["hmma"] += 1
+    return counts
+
+
 def sass_mma_counts(name: str):
-    """{mangled kernel: count of HMMA instructions in its SASS} of the built
-    csrc/<name>.cu, or None where no cuobjdump is found."""
+    """parse_sass_mma of the built csrc/<name>.cu's SASS, or None where no
+    cuobjdump is found."""
     tool = _cuobjdump()
     if tool is None:
         return None
     sass = subprocess.run([tool, "-sass", _paths(name)[1]], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts, cur = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and "HMMA" in line:
-            counts[cur] += 1
-    return counts
+    return parse_sass_mma(sass)

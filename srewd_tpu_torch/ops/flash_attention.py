@@ -9,11 +9,11 @@ ops/_build.py and bound with ctypes.
 
 The wrappers pass q, k and v as strided views: unit stride along D, any
 batch and row stride whose size in bytes, like the data pointer, is a
-multiple of 16 (the kernels copy tiles with 16-byte cp.async; `_check_qkv`
-raises otherwise). The 1x1 qkv (self-attention, row stride 3C) and kv
-(cross-attention, row stride 2C) convolutions therefore feed the kernels
-without a copy, and autograd's view handling routes the gradients of the
-views back into the convolutions' output slabs.
+multiple of 16 (the kernels load tiles by TMA, whose tensor maps need
+that; `_check_qkv` raises otherwise). The 1x1 qkv (self-attention, row
+stride 3C) and kv (cross-attention, row stride 2C) convolutions therefore
+feed the kernels without a copy, and autograd's view handling routes the
+gradients of the views back into the convolutions' output slabs.
 
 `flash_attention_trainable` is what the model calls: with grad enabled it
 goes through `FlashAttentionFn` (K1 saving the row log-sum-exp, then K2 in
@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from . import _build, count, use_op, use_plain
+from . import _build, count, launch, use_op, use_plain
 
 SUPPORTED_D = (64, 128, 256, 512)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,22 +102,27 @@ def _library():
     return _fwd_lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of csrc/flash_attention_bwd.cu) with its C entry
+    points' argument and result types set."""
+    lib.srewd_flash_attention_bwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.srewd_flash_attention_bwd.restype = ctypes.c_int
+    lib.srewd_cuda_error_string_bwd.argtypes = [ctypes.c_int]
+    lib.srewd_cuda_error_string_bwd.restype = ctypes.c_char_p
+    return lib
+
+
 def _bwd_library():
     global _bwd_lib
     if _bwd_lib is None:
-        lib = _build.load("flash_attention_bwd")
-        lib.srewd_flash_attention_bwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.srewd_flash_attention_bwd.restype = ctypes.c_int
-        lib.srewd_cuda_error_string_bwd.argtypes = [ctypes.c_int]
-        lib.srewd_cuda_error_string_bwd.restype = ctypes.c_char_p
-        _bwd_lib = lib
+        _bwd_lib = bind_bwd(_build.load("flash_attention_bwd"))
     return _bwd_lib
 
 
@@ -145,10 +150,10 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_aligned(name: str, tname: str, t: torch.Tensor, pointer: bool = True) -> None:
-    """The kernels copy rows into shared memory 16 bytes at a time
-    (cp.async): the data pointer (unless `pointer` is False) and the batch
-    and row strides, in bytes, must be multiples of 16. No copy is made for
-    a tensor that is not."""
+    """The kernels load tiles by TMA, whose tensor maps take a 16-byte
+    aligned base and strides: the data pointer (unless `pointer` is False)
+    and the batch and row strides, in bytes, must be multiples of 16. No
+    copy is made for a tensor that is not."""
     isz = t.element_size()
     if pointer and t.data_ptr() % 16:
         raise ValueError(f"{name}: {tname}'s data pointer is not 16-byte aligned "
@@ -190,15 +195,15 @@ def _launch_forward(q, k, v, scale, return_lse=False):
         lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
         o32 = o if q.dtype == torch.float32 else torch.empty(
             (b, n, d), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.srewd_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            o32.data_ptr() if o32 is not None and o32 is not o else None,
-            b, n, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            float(scale), _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
-        )
+    err = launch(
+        q.device, lib.srewd_flash_attention_fwd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        o32.data_ptr() if o32 is not None and o32 is not o else None,
+        b, n, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        float(scale), _DTYPE_CODE[q.dtype],
+    )
     if err != 0:
         msg = lib.srewd_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
@@ -257,14 +262,14 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty_like(dq)
     dv = torch.empty_like(dq)
     delta = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.srewd_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, n, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            float(scale), _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
-        )
+    err = launch(
+        q.device, lib.srewd_flash_attention_bwd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, n, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        float(scale), _DTYPE_CODE[q.dtype],
+    )
     if err != 0:
         msg = lib.srewd_cuda_error_string_bwd(err).decode()
         raise RuntimeError(f"flash_attention_backward launch failed: {msg} ({err})")

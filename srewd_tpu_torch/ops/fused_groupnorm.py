@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, count, use_op, use_plain
+from . import _build, count, launch, use_op, use_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (227 KiB)
@@ -256,23 +256,6 @@ def _active_clusters(plan: GNPlan, dtype: torch.dtype, backward: bool) -> int:
     return n
 
 
-def _stream(device: torch.device) -> int:
-    """The current CUDA stream of `device`, as the integer handle the C
-    interface takes (PyTorch's raw getter, as its compiler's generated code
-    calls it: it builds no Stream object, unlike
-    torch.cuda.current_stream().cuda_stream, and costs far less host time)."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
-def _launch(device: torch.device, fn, *args) -> int:
-    """fn(*args, stream) with `device` current; the device switch only where
-    it is not current already (it costs host time on every call)."""
-    if device.index == torch.cuda.current_device():
-        return fn(*args, _stream(device))
-    with torch.cuda.device(device):
-        return fn(*args, _stream(device))
-
-
 def _check(name: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            num_groups: int, pointer: bool = True) -> None:
     """What the kernels take. The custom op's fake runs it with `pointer`
@@ -337,7 +320,7 @@ def _launch_forward(x, weight, bias, num_groups, eps, apply_swish, return_stats=
     if return_stats:
         mean = torch.empty((b, num_groups), dtype=torch.float32, device=x.device)
         rstd = torch.empty_like(mean)
-    err = _launch(
+    err = launch(
         x.device, lib.srewd_gn_swish_fwd,
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
         mean.data_ptr() if mean is not None else None,
@@ -404,7 +387,7 @@ def gn_swish_backward(x, dy, weight, bias, mean, rstd, num_groups: int = 32,
     ws = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
     dweight = torch.empty(c, dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dweight)
-    err = _launch(
+    err = launch(
         x.device, lib.srewd_gn_swish_bwd,
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), dx.data_ptr(), ws.data_ptr(), dweight.data_ptr(), dbias.data_ptr(),

@@ -283,9 +283,12 @@ def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
 
 
 def test_parse_ptxas_report():
-    text = """ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
-ptxas info    : Function properties for _Z3fooPf
+    # a wgmma kernel of K1 (one warp-specialised instantiation) beside a plain one
+    fwd = ("_ZN12_GLOBAL__N_13fa316flash_fwd_kernelIfLi64ELi64ELi64ELi2ELi2EEEv"
+           "14CUtensorMap_stS2_S2_PT_PfS6_if")
+    text = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'
+ptxas info    : Function properties for {fwd}
     0 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
 ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'
@@ -294,20 +297,62 @@ ptxas info    : Function properties for _Z3barPf
 ptxas info    : Used 32 registers, used 0 barriers, 1024 bytes smem, 360 bytes cmem[0]
 """
     assert _build.parse_ptxas(text) == [
-        {"kernel": "_Z3fooPf", "registers": 168, "smem_static": 0, "spill_stores": 12,
+        {"kernel": fwd, "registers": 168, "smem_static": 0, "spill_stores": 12,
          "spill_loads": 8, "stack": 0},
         {"kernel": "_Z3barPf", "registers": 32, "smem_static": 1024, "spill_stores": 0,
          "spill_loads": 0, "stack": 0},
     ]
 
 
+def test_parse_sass_mma_counts_warpgroup_and_warp_products():
+    """Phase 2 reads each kernel's tensor-core instructions from cuobjdump's
+    SASS: HGMMA (wgmma) and HMMA (mma.sync) apart, per function, and no
+    other instruction whose name merely contains the letters."""
+    text = """
+code for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_13fa316flash_fwd_kernelIfLi64ELi64ELi64ELi2ELi2EEEv14CUtensorMap_st
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0a30*/                   HGMMA.64x64x8.F32.TF32 R24, gdesc[UR4], R24, gsb0 ;
+        /*0a40*/                   HGMMA.64x64x8.F32.TF32 R24, gdesc[UR8], R24, gsb0 ;
+        /*0a50*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*0a60*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4+0x28000], R3 ;
+\t\tFunction : _ZN12_GLOBAL__N_13fa217flash_fwd_kernelIfLi512ELi1ELi8ELi16EEEvPKT_
+        /*0100*/                   HMMA.1684.F32.TF32 R4, R8, R12, R4 ;
+        /*0110*/                   HMMA.1684.F32.TF32 R4, R8, R14, R4 ;
+        /*0120*/                   HMMA.1684.F32.TF32 R4, R10, R12, R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_122flash_bwd_delta_kernelIfEEvPKfPKT_Pfii
+        /*0010*/                   FFMA R2, R4, R5, R2 ;
+"""
+    counts = _build.parse_sass_mma(text)
+    assert counts == {
+        "_ZN12_GLOBAL__N_13fa316flash_fwd_kernelIfLi64ELi64ELi64ELi2ELi2EEEv14CUtensorMap_st":
+            {"hgmma": 2, "hmma": 0},
+        "_ZN12_GLOBAL__N_13fa217flash_fwd_kernelIfLi512ELi1ELi8ELi16EEEvPKT_":
+            {"hgmma": 0, "hmma": 3},
+        "_ZN12_GLOBAL__N_122flash_bwd_delta_kernelIfEEvPKfPKT_Pfii": {"hgmma": 0, "hmma": 0},
+    }
+    assert _build.parse_sass_mma("") == {}
+
+
 def test_chip_smoke_kernel_names():
     import chip_smoke
 
-    assert chip_smoke.kernel_name(
-        "void <unnamed>::flash_fwd_kernel<float, (int)64, (int)4, (int)1, (int)64>"
-        "(float const*, float*, int, <unnamed>::Strides, float)"
-    ) == "flash_fwd_kernel<float, (int)64, (int)4, (int)1, (int)64>"
+    fwd = chip_smoke.kernel_name(
+        "void (anonymous namespace)::fa3::flash_fwd_kernel<float, (int)64, (int)64, (int)64, "
+        "(int)2, (int)2>"
+        "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float*, float*, float*, int, float)")
+    assert fwd == "fa3::flash_fwd_kernel<float, (int)64, (int)64, (int)64, (int)2, (int)2>"
+    dkdv = chip_smoke.kernel_name(
+        "void <unnamed>::fa3::flash_bwd_dkdv_kernel<__nv_bfloat16, (int)512, (int)128, (int)16, "
+        "(int)1, (int)2>"
+        "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+        "CUtensorMap_st, __nv_bfloat16*, __nv_bfloat16*, int, float)")
+    assert dkdv == ("fa3::flash_bwd_dkdv_kernel<__nv_bfloat16, (int)512, (int)128, (int)16, "
+                    "(int)1, (int)2>")
+    old = chip_smoke.kernel_name(
+        "void <unnamed>::fa2::flash_fwd_kernel<float, (int)512, (int)1, (int)8, (int)16>"
+        "(float const*, float*, int, <unnamed>::Strides, float)")
+    assert old == "fa2::flash_fwd_kernel<float, (int)512, (int)1, (int)8, (int)16>"
     assert chip_smoke.kernel_name(
         "void (anonymous namespace)::flash_bwd_delta_kernel<float>(float const*, float*, int)"
     ) == "flash_bwd_delta_kernel<float>"
@@ -319,11 +364,35 @@ def test_chip_smoke_kernel_names():
         "<unnamed>::gn_wb_kernel(const float *, float *, float *, int, int)")]
     assert gn == ["gn_fwd_kernel<__nv_bfloat16>", "gn_bwd_kernel<float>", "gn_wb_kernel"]
     # GroupNorm has no product: phase 2 exempts its kernels (and K2's Δ) from
-    # the tensor-core check, and holds every other K1/K2 kernel to it
+    # the tensor-core check, and holds K1's and K2's wgmma kernels to HGMMA,
+    # any kept on mma.sync to HMMA
     assert not any(chip_smoke.needs_hmma(n) for n in gn)
     assert not chip_smoke.needs_hmma("flash_bwd_delta_kernel<float>")
-    assert chip_smoke.needs_hmma("flash_fwd_kernel<float, (int)64, (int)4, (int)1, (int)64>")
-    assert chip_smoke.needs_hmma("flash_bwd_dq_kernel<float, (int)128>")
+    assert [chip_smoke.tensor_core_op(n) for n in (fwd, dkdv, old, gn[0])] == [
+        "HGMMA", "HGMMA", "HMMA", None]
+    assert chip_smoke.tensor_core_op("fa3::flash_bwd_dq_kernel<float, (int)128, (int)128, "
+                                     "(int)16, (int)1, (int)2>") == "HGMMA"
+    assert chip_smoke.tensor_core_op("fa3::flash_fwd_stream_kernel<(int)512, (int)128, (int)64, "
+                                     "(int)2, (int)2, (int)64, (int)1>") == "HGMMA"
+    assert chip_smoke.mma_sync_widths([fwd, dkdv, old, *gn, "fa2::flash_bwd_dq_kernel"
+                                       "<__nv_bfloat16, (int)256, (int)1, (int)4, (int)32>"]) == [
+        ["bf16", 256], ["f32", 512]]
+    assert chip_smoke.mma_sync_widths([fwd, dkdv]) == []
+
+
+@pytest.mark.parametrize("argv", [[], ["--k2-wide"], ["--train-kernels"], ["--wide"]])
+def test_chip_smoke_needs_a_card_and_names_its_options(monkeypatch, capsys, argv):
+    """Without a CUDA card every option exits 2 before any phase; an
+    unknown option exits 2 naming the options, --k2-wide among them."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main(argv) == 2
+    err = capsys.readouterr().err
+    if argv == ["--wide"]:
+        assert "unknown arguments" in err and "--k2-wide" in err
+    else:
+        assert "torch.cuda.is_available() is False" in err
 
 
 @pytest.mark.parametrize("fault", ["none", "differs_on_repeat", "nan"])
