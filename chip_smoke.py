@@ -12,10 +12,14 @@ every residual architecture on one CUDA card and check them.
     python3 chip_smoke.py --quality        # phases 1-2, phase 6, phase 15
     python3 chip_smoke.py --extras         # phases 1-2, 6, 8 and 16
     python3 chip_smoke.py --k2-wide        # phases 1-2, float32 K2 at D >= 256: both designs
+    python3 chip_smoke.py --gloo-cuda      # phase 1, the collectives gloo carries on CUDA
 
 The whole run aims at 600 s or less. Its depth cut: phase 4 samples 16
 fields (SLICE_FIELDS). Phase 13 exports first, so that the artifact's
-process imports and loads it while the service runs. Phase 3's attention
+process imports and loads it while the service runs. Phase 14(c) is paid
+by overlap: its ranks start and train beside 14(b)'s (after 14(a), whose
+cuDNN timing keeps its earlier neighbours); 16(e)'s DataLoader workers
+start while its trainer is built. Phase 3's attention
 rows, the K1 and K2 graph replays and the ragged-N rows included, take
 ~8 s: they fit the budget without a cut.
 
@@ -241,7 +245,25 @@ with an option), whole:
                 same weights: the fields within 1e-4 relative RMSE, each
                 Kelvin metric within 1e-4 relative. Its step time is a
                 correctness run's, not a scaling number: gloo reduces
-                through the host.
+                through the host. (c) parameter sharding: two more ranks
+                (`--worker shard-step`, started once (a) has ended) on
+                cuda:0 over gloo as a (data=1,
+                model=2) mesh (`init_distributed(model_parallel=2)`), the
+                trainer built with model_shard_min_dim=SHARD_MIN_DIM (64),
+                (b)'s config, batches and steps, against (b)'s one-process
+                run: the 5 losses within 1e-4 relative, the first step's
+                gradients gathered whole by phase 7's rule, both ranks'
+                gathered parameters bit for bit (SHA-256), K1, K2, K3 and
+                its backward launched in each rank and no plain version,
+                and the bytes of parameters plus optimizer state each rank
+                holds beside the unsharded trainer's (under 0.51 of it).
+                Every collective of the sharding goes through the host
+                (gloo; the weights gathered and the gradients scattered
+                each step): a correctness run, not a timing. (c)'s ranks
+                run beside (b)'s (both let go once (a) has ended, so (a)'s
+                cuDNN timing meets the neighbours it met before (c)
+                existed): the two share the card and the host, and their
+                step times are not (b)'s alone.
  15. quality  — the evaluation path on phase 6's checkpoint. (a) the
                 checkpoint in the reference's `_gen.pth` layout
                 (`denoise_fn.` + the UNet, the train schedule's twelve
@@ -292,6 +314,19 @@ with an option), whole:
                 `WandbLogger(opt).enabled` of phase 6's config (written
                 without the shipped config's `wandb` section, as every config
                 of this script) is false, and no phase has imported wandb.
+                (e) PhyConv (levels 4, 5x5 stencils) on a batch-8 phydiff
+                condition (bicubic x4 of random 32x64 LR: 128x256) and on
+                the 32x64 LR (a 2x4 coarsest field: the reflect pad of 2
+                reflects again), float32 and bf16, against the same
+                module in float64 on the card: max |err| / max |float64|
+                within PHY_BOUNDS (1e-5 float32, 2^-5 bf16), the moments
+                within 1e-6, moment_constraint_loss's gradient reaching
+                `kernels` (within 1e-6 of float64's); then
+                `worker_batches(worker_count=2)` (spawned workers) feeding
+                WORKER_STEPS (4) steps of a trainer built from phase 6's
+                config, every batch equal to DataHandler.assemble's of the
+                same timestamps bit for bit, K1, K2, K3 and its backward
+                launched, no plain version.
   --profile — instead of 3-16: per dtype, one full-width UNet call by host
                 clock and by torch.profiler's device time per kernel, the card's
                 idle share, and one DDIM-50 generate_sr (see profile_unet).
@@ -313,6 +348,14 @@ with an option), whole:
                 phase 6, then phase 15 (no kernels line).
   --extras — phases 1-2, phydiff's calls per UNet call (phase 3's hooks),
                 phases 6 and 8, then phase 16 (no kernels line).
+  --gloo-cuda — phase 1, then two ranks on cuda:0 over gloo call, on CUDA
+                tensors, broadcast, all_reduce, all_gather,
+                all_gather_into_tensor and reduce_scatter_tensor (values
+                checked), then FSDP2's fully_shard over a (data=1, model=2)
+                mesh (an MLP's gradients against the MLP whole), each call
+                in two fresh ranks of its own: one `gloo_cuda` line of what
+                ran, what raised and what killed its process (no kernels
+                line; no build).
   --bf16-step N — instead of 3-16: phase 11's bf16 step, kernels against
                 plain under the same bound, at draw seeds 3 .. N+2 (phase 11
                 takes seed 3), with the cuDNN settings phase 11 meets.
@@ -3041,6 +3084,7 @@ def serve_replicas(torch, device, stack, calls) -> dict:
 # ------------------------------------------------------------------- phase 14
 DDP_STEPS = 10  # 14(a): train.main under torchrun, world size 1
 DDP_RANKS, DDP_LOCAL_BATCH, DDP_GLOO_STEPS = 2, 2, 5  # 14(b): two gloo ranks on the card
+SHARD_MIN_DIM = 64  # 14(c): the same two ranks as a (data=1, model=2) mesh
 
 
 def _free_port() -> int:
@@ -3207,8 +3251,7 @@ def worker_gloo_step(workdir: str, cfg_path: str) -> int:
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses = [trainer.train_on_batch_async(b) for b in batches]
-        torch.cuda.synchronize()
+        losses, memory = _steps_with_peak(torch, trainer, batches, grads)
         step_ms = (time.perf_counter() - t0) / len(batches) * 1e3
         launches, plain = read_counts()
         losses = mean_across(torch.stack(losses)).tolist()
@@ -3228,10 +3271,244 @@ def worker_gloo_step(workdir: str, cfg_path: str) -> int:
             json.dump({"losses": losses, "launches": launches, "plain_calls": plain,
                        "val": val, "params_sha256": digest.hexdigest(),
                        "n_train": len(dh.train_timestamps), "step_host_ms": step_ms,
-                       "stages_sec": stages}, f)
+                       "memory": memory, "stages_sec": stages}, f)
     finally:
         shutdown()
     return 0
+
+
+def _steps_with_peak(torch, trainer, batches, grads) -> tuple:
+    """The steps of a 14(b) or 14(c) rank, and the card's memory they take
+    in this process: `peak_bytes`, the most allocated at once over steps
+    2.. (the first step's gradient copies, `grads`, moved to the host
+    first: a diagnostic's, not the training's), and `allocated_bytes` after
+    them (torch.cuda's allocator counts)."""
+    losses = [trainer.train_on_batch_async(batches[0])]
+    grads.update({k: v.cpu() for k, v in grads.items()})
+    torch.cuda.reset_peak_memory_stats()
+    losses += [trainer.train_on_batch_async(b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    return losses, {"peak_bytes": torch.cuda.max_memory_allocated(),
+                    "allocated_bytes": torch.cuda.memory_allocated()}
+
+
+def _state_bytes(trainer) -> dict:
+    """Bytes this process holds of the trainer's parameters (UNet and
+    encoder), optimizer state and EMA."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts if hasattr(t, "numel"))
+
+    mods = [m for m in (trainer.model.unet, trainer.model.encoder) if m is not None]
+    out = {"params": nbytes(p for m in mods for p in m.parameters()),
+           "optimizer": nbytes(v for st in trainer.optimizer.state.values()
+                               for v in st.values()),
+           "ema": nbytes(v for e in (trainer.ema, trainer.ema_encoder) if e
+                         for v in e.values())}
+    out["params_plus_moments"] = out["params"] + out["optimizer"]
+    return out
+
+
+def worker_shard_step(workdir: str, cfg_path: str) -> int:
+    """Phase 14(c)'s rank: as worker_gloo_step (its stride of the data, then
+    a line on its standard input, gloo on cuda:0, cuDNN deterministic by
+    heuristics), but the ranks form a (data=1, model=2) mesh
+    (`init_distributed(model_parallel=2)`) and the trainer shards its
+    parameters at model_shard_min_dim=SHARD_MIN_DIM. DDP_GLOO_STEPS steps;
+    then the gathered state. Writes shard_rank<r>.json (losses, the ranks'
+    mean; launches; a SHA-256 of the gathered parameters; the bytes this
+    rank holds; the sharded leaves; seconds per stage) and, on rank 0,
+    shard_rank0.pt (the first step's reduced gradients, gathered whole)."""
+    import hashlib
+
+    import torch
+
+    from srewd_tpu_torch.cli import Config, build_data_handler, build_trainer
+    from srewd_tpu_torch.parallel import init_distributed, mean_across, shutdown
+
+    opt = Config(cfg_path, phase="train", experiment=False).get_opt()
+    opt["path"]["checkpoint"] = None
+    r = int(os.environ["RANK"])
+    dh = build_data_handler(opt, process_index=r, process_count=DDP_RANKS)
+    batches = [b for _, b in zip(range(DDP_GLOO_STEPS), dh.train_batches(epoch=1))]
+    stages = {"ready": time.perf_counter() - T0}
+    sys.stdin.readline()
+    t_go = time.perf_counter()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    init_distributed("gloo", model_parallel=DDP_RANKS)
+    try:
+        trainer = build_trainer(opt, device, model_shard_min_dim=SHARD_MIN_DIM)
+        sharded = trainer._sharded
+        grads = {}
+
+        def hook(optimizer, args, kwargs):
+            if not grads:  # every rank gathers: a collective
+                local = {n: p.grad for n, p in trainer.model.unet.named_parameters()}
+                grads.update({k: v.detach().cpu() for k, v in
+                              sharded.full_state(local, "unet.").items()})
+
+        trainer.optimizer.register_step_pre_hook(hook)
+        stages["built"] = time.perf_counter() - t_go
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, memory = _steps_with_peak(torch, trainer, batches, grads)
+        step_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+        launches, plain = read_counts()
+        losses = mean_across(torch.stack(losses)).tolist()
+        held = _state_bytes(trainer)
+        state = trainer.state()  # gathered whole: a collective
+        stages["trained"] = time.perf_counter() - t_go
+        digest = hashlib.sha256()
+        for k in sorted(state["params"]):
+            digest.update(state["params"][k].detach().cpu().numpy().tobytes())
+        if r == 0:
+            torch.save({"grads": grads}, os.path.join(workdir, "shard_rank0.pt"))
+        with open(os.path.join(workdir, f"shard_rank{r}.json"), "w") as f:
+            json.dump({"losses": losses, "launches": launches, "plain_calls": plain,
+                       "params_sha256": digest.hexdigest(), "bytes": held,
+                       "sharded_leaves": len(sharded.dims),
+                       "leaves": sum(1 for _ in trainer.model.unet.parameters()),
+                       "dim1_leaves": sorted(n for n, d in sharded.dims.items() if d == 1),
+                       "mesh": {"data": trainer.mesh["data"].size(),
+                                "model": trainer.mesh["model"].size()},
+                       "n_train": len(dh.train_timestamps), "step_host_ms": step_ms,
+                       "memory": memory, "stages_sec": stages}, f)
+    finally:
+        shutdown()
+    return 0
+
+
+GLOO_CUDA_CALLS = ("broadcast", "all_reduce", "all_gather", "all_gather_into_tensor",
+                   "reduce_scatter_tensor", "fsdp2")
+
+
+def worker_gloo_cuda(out: str, call: str) -> int:
+    """--gloo-cuda's rank (RANK, WORLD_SIZE, MASTER_* given by the parent):
+    joins a gloo group on cuda:0 and makes one `call` of GLOO_CUDA_CALLS on
+    CUDA tensors, checking the values: a collective that parameter
+    sharding could use, or FSDP2's `fully_shard` over a (data=1, model=2)
+    CUDA mesh, per layer with `shard_placement_fn` (one forward and
+    backward of a two-layer MLP against the same MLP whole). Writes
+    gloo_cuda_<call>_rank<r>.json: whether it ran and gave the right
+    values, or its error."""
+    import copy
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    r, n = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+                            rank=r, world_size=n, timeout=datetime.timedelta(seconds=60))
+
+    def full(v, k=4):
+        return torch.full((k,), float(v), device=device)
+
+    def broadcast():
+        t = full(r + 1)
+        dist.broadcast(t, src=0)
+        return torch.equal(t, full(1))
+
+    def all_reduce():
+        t = full(r + 1)
+        dist.all_reduce(t)
+        return torch.equal(t, full(n * (n + 1) // 2))
+
+    def all_gather():
+        parts = [full(-1) for _ in range(n)]
+        dist.all_gather(parts, full(r + 1))
+        return all(torch.equal(p, full(i + 1)) for i, p in enumerate(parts))
+
+    def all_gather_into_tensor():
+        o = full(-1, 4 * n)
+        dist.all_gather_into_tensor(o, full(r + 1))
+        return torch.equal(o, torch.arange(1, n + 1, device=device).float().repeat_interleave(4))
+
+    def reduce_scatter_tensor():
+        o = full(-1)
+        x = torch.arange(4 * n, device=device).float() * (r + 1)
+        dist.reduce_scatter_tensor(o, x)
+        want = torch.arange(4 * r, 4 * r + 4, device=device).float() * (n * (n + 1) // 2)
+        return torch.equal(o, want)
+
+    def fsdp2():
+        import torch.nn as nn
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+
+        mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=("data", "model"))
+        torch.manual_seed(0)
+        whole = nn.Sequential(nn.Linear(64, 128), nn.GELU(), nn.Linear(128, 64)).to(device)
+        model = copy.deepcopy(whole)
+        for layer in (model[0], model[2]):
+            fully_shard(layer, mesh=mesh, shard_placement_fn=lambda p: Shard(0))
+        fully_shard(model, mesh=mesh)
+        x = torch.randn(8, 64, device=device, generator=torch.Generator(device).manual_seed(1))
+        model(x).square().mean().backward()
+        whole(x).square().mean().backward()
+        err = max(float((p.grad.full_tensor() - q.grad).abs().max())
+                  for p, q in zip(model.parameters(), whole.parameters()))
+        return err <= 1e-6
+
+    fn = locals()[call]
+    try:
+        res = {"ok": bool(fn())}
+        torch.cuda.synchronize()
+    except Exception as e:  # the finding: which calls gloo carries on CUDA tensors
+        res = {"ok": False, "error": f"{type(e).__name__}: {e}"[:300]}
+    with open(os.path.join(out, f"gloo_cuda_{call}_rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_gloo_cuda(workdir) -> None:
+    """--gloo-cuda: for each call of GLOO_CUDA_CALLS, two fresh
+    worker_gloo_cuda ranks on cuda:0 (a call that kills its process hides
+    no other); one line with each call's result on each rank, or the
+    ranks' exit codes and the end of their output where a rank died."""
+    calls = {}
+    for call in GLOO_CUDA_CALLS:
+        port = _free_port()
+        procs = []
+        for r in range(DDP_RANKS):
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(DDP_RANKS),
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+            log = open(os.path.join(workdir, f"gloo_cuda_{call}_rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--worker", "gloo-cuda",
+                 workdir, call], cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+        try:
+            for p, _ in procs:
+                p.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        ranks = []
+        for r, (p, _) in enumerate(procs):
+            path = os.path.join(workdir, f"gloo_cuda_{call}_rank{r}.json")
+            if p.returncode == 0 and os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+            else:
+                with open(os.path.join(workdir, f"gloo_cuda_{call}_rank{r}.log")) as f:
+                    ranks.append({"ok": False, "rc": p.returncode,
+                                  "output_tail": f.read()[-600:]})
+        calls[call] = ranks
+    emit({"phase": "gloo_cuda", "backend": "gloo", "ranks": DDP_RANKS, "device": "cuda:0",
+          "ok": {c: all(x["ok"] for x in v) for c, v in calls.items()}, "calls": calls})
 
 
 class _GlobalVal:
@@ -3307,19 +3584,19 @@ def run_ddp_nccl(torch, workdir, phase6) -> dict:
     return a["launches"]
 
 
-def _start_gloo_ranks(workdir, cfg_path) -> list:
-    """Phase 14(b)'s two ranks (worker_gloo_step), each logging to
-    ddp_gloo_rank<r>.log; they read their data, then wait for a line on
-    their standard input."""
+def _start_gloo_ranks(workdir, cfg_path, worker="gloo-step", log="ddp_gloo") -> list:
+    """Two ranks of `worker` (14(b)'s worker_gloo_step, or 14(c)'s
+    worker_shard_step), each logging to <log>_rank<r>.log; they read their
+    data, then wait for a line on their standard input."""
     port = _free_port()
     procs = []
     for r in range(DDP_RANKS):
         env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r),
                "WORLD_SIZE": str(DDP_RANKS), "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
-        with open(os.path.join(workdir, f"ddp_gloo_rank{r}.log"), "w") as log:
+        with open(os.path.join(workdir, f"{log}_rank{r}.log"), "w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--worker", "gloo-step",
-                 workdir, cfg_path], cwd=REPO, env=env, stdin=subprocess.PIPE, stdout=log,
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--worker", worker,
+                 workdir, cfg_path], cwd=REPO, env=env, stdin=subprocess.PIPE, stdout=f,
                 stderr=subprocess.STDOUT, text=True))
     return procs
 
@@ -3334,9 +3611,7 @@ def run_ddp_gloo(torch, workdir, device, cfg_path, procs) -> dict:
     from srewd_tpu_torch.training.trainer import DiffusionTrainer, run_validation, step_seed
 
     t0 = time.perf_counter()
-    for p in procs:
-        p.stdin.write("go\n")
-        p.stdin.close()
+    _go(procs)
     opt = Config(cfg_path, phase="train", experiment=False).get_opt()
     opt["path"]["checkpoint"] = None
     parts = [build_data_handler(opt, process_index=i, process_count=DDP_RANKS)
@@ -3348,6 +3623,8 @@ def run_ddp_gloo(torch, workdir, device, cfg_path, procs) -> dict:
                                 zip(*(p.train_batches(epoch=1) for p in parts)))]
     losses = [trainer.train_on_batch(b) for b in batches]
     sec_one_process = time.perf_counter() - t0
+    # 14(c) compares its sharded ranks with the same one-process run
+    reference = {"losses": losses, "grads": grads, "bytes": _state_bytes(trainer)}
     for p in procs:
         p.wait(timeout=240)
     sec = time.perf_counter() - t0
@@ -3397,6 +3674,7 @@ def run_ddp_gloo(torch, workdir, device, cfg_path, procs) -> dict:
             "val_fields_rel_rmse": sr_rel,
             "rank_step_host_ms": [x["step_host_ms"] for x in ranks],
             "step_host_ms_note": "a correctness run: gloo reduces through the host",
+            "rank_memory": [x["memory"] for x in ranks],
             "launches": [x["launches"] for x in ranks],
             "plain_calls": [x["plain_calls"] for x in ranks],
             "bounds": {"loss": 1e-4, "grad": 1e-3, "val": 1e-4, "val_fields": 1e-4},
@@ -3416,27 +3694,103 @@ def run_ddp_gloo(torch, workdir, device, cfg_path, procs) -> dict:
         check(sum(x["plain_calls"].values()) == 0, f"the plain versions ran: {x['plain_calls']}")
     del trainer, saved
     torch.cuda.empty_cache()
+    reference["ddp_rank_memory"] = line["rank_memory"]
+    return {k: sum(x["launches"][k] for x in ranks) for k in ranks[0]["launches"]}, reference
+
+
+def _go(procs) -> None:
+    """The line on which waiting ranks start."""
+    for p in procs:
+        p.stdin.write("go\n")
+        p.stdin.close()
+
+
+def run_shard(torch, workdir, procs, reference, t0) -> dict:
+    """Phase 14(c): the two sharding ranks (started, and let go, at `t0`, as
+    14(b)'s are let go) against 14(b)'s one process at batch 4 on the same
+    batches: losses, the first step's gradients gathered whole, both ranks'
+    gathered parameters, launches in each rank, and the bytes each holds
+    beside the unsharded trainer's."""
+    for p in procs:
+        p.wait(timeout=300)
+    sec = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        with open(os.path.join(workdir, f"shard_rank{r}.log")) as f:
+            check(p.returncode == 0, f"sharding rank {r} failed (rc {p.returncode}):\n"
+                                     f"{f.read()[-3000:]}")
+    ranks = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(workdir, f"shard_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    saved = torch.load(os.path.join(workdir, "shard_rank0.pt"))
+    rep = _grad_report(saved["grads"], {k: v.cpu() for k, v in reference["grads"].items()})
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"], reference["losses"]))
+    line = {"phase": "shard", "backend": "gloo", "mesh": ranks[0]["mesh"], "device": "cuda:0",
+            "model_shard_min_dim": SHARD_MIN_DIM, "batch_per_rank": DDP_LOCAL_BATCH,
+            "global_batch": DDP_RANKS * DDP_LOCAL_BATCH, "steps": DDP_GLOO_STEPS, "sec": sec,
+            "rank_stages_sec": [x["stages_sec"] for x in ranks],
+            "sharded_leaves": ranks[0]["sharded_leaves"], "leaves": ranks[0]["leaves"],
+            "dim1_leaves": ranks[0]["dim1_leaves"],
+            "losses": ranks[0]["losses"], "one_process_losses": reference["losses"],
+            "loss_rel_diff": loss_rel, **rep,
+            "params_bit_identical": ranks[0]["params_sha256"] == ranks[1]["params_sha256"],
+            "rank_bytes": [x["bytes"] for x in ranks], "unsharded_bytes": reference["bytes"],
+            "rank_memory": [x["memory"] for x in ranks],
+            "ddp_rank_memory": reference["ddp_rank_memory"],
+            "rank_memory_note": "steps 2-5 at batch 2 a rank: the sharded step gathers "
+                                "every sharded leaf whole for its forward and backward, so "
+                                "its peak holds full weights and full gradients (14(b)'s "
+                                "DDP ranks beside it)",
+            "rank_step_host_ms": [x["step_host_ms"] for x in ranks],
+            "step_host_ms_note": "a correctness run: every collective goes through the host "
+                                 "(gloo), the weights gathered and the gradients scattered "
+                                 "each step",
+            "launches": [x["launches"] for x in ranks],
+            "plain_calls": [x["plain_calls"] for x in ranks],
+            "bounds": {"loss": 1e-4, "grad": 1e-3}}
+    emit(line)
+    check(ranks[0]["mesh"] == {"data": 1, "model": DDP_RANKS}, f"mesh {ranks[0]['mesh']}")
+    check(loss_rel <= 1e-4, f"the sharded losses differ from one process's by {loss_rel}")
+    check(rep["worst_grad_rel_rmse"] <= 1e-3,
+          f"the sharded gradient of {rep['worst_leaf']} differs by "
+          f"{rep['worst_grad_rel_rmse']} (relative RMSE)")
+    check(line["params_bit_identical"], "the two ranks' gathered parameters differ")
+    full = reference["bytes"]["params_plus_moments"]
+    for x in ranks:
+        check(x["bytes"]["params_plus_moments"] < 0.51 * full,
+              f"a rank holds {x['bytes']} of the unsharded {reference['bytes']}")
+        check(all(v > 0 for v in x["launches"].values()),
+              f"a kernel was not launched in a rank: {x['launches']}")
+        check(sum(x["plain_calls"].values()) == 0, f"the plain versions ran: {x['plain_calls']}")
     return {k: sum(x["launches"][k] for x in ranks) for k in ranks[0]["launches"]}
 
 
 def run_ddp(torch, workdir, device, phase6) -> dict:
-    """Phase 14: (b)'s ranks start and read their data while (a) runs, then
-    (b); the launches of (a)'s DDP run and (b)'s ranks, summed (a main-path
-    run)."""
+    """Phase 14: (b)'s ranks start and read their data while (a) runs; then
+    (c)'s ranks start, and (b) and (c) run side by side, (c) compared with
+    (b)'s one-process run; the launches of (a)'s DDP run and (b)'s and (c)'s
+    ranks, summed (main-path runs)."""
     with open(phase6["config"]) as f:
         cfg = json.load(f)
     cfg["data"].update(batch_size=DDP_LOCAL_BATCH, val_batch_size=DDP_LOCAL_BATCH)
     cfg_b = _write_config(workdir, "ddp_gloo", cfg)
     procs = _start_gloo_ranks(workdir, cfg_b)
+    procs_c = []
     try:
         a = run_ddp_nccl(torch, workdir, phase6)
-        b = run_ddp_gloo(torch, workdir, device, cfg_b, procs)
+        # (c) starts once (a) has timed its cuDNN algorithms, as in the runs
+        # before it existed, and runs beside (b)
+        t_c = time.perf_counter()
+        procs_c = _start_gloo_ranks(workdir, cfg_b, "shard-step", "shard")
+        _go(procs_c)
+        b, reference = run_ddp_gloo(torch, workdir, device, cfg_b, procs)
+        c = run_shard(torch, workdir, procs_c, reference, t_c)
     finally:
-        for p in procs:
+        for p in procs + procs_c:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return {k: a[k] + b[k] for k in a}
+    return {k: a[k] + b[k] + c[k] for k in a}
 
 
 # phase 15: the evaluation path on phase 6's checkpoint and a week's tree
@@ -3961,6 +4315,102 @@ def extras_render(torch, workdir, device, phase6, cnn_ckpt) -> dict:
             "wandb_enabled": wandb_enabled}
 
 
+PHY_BOUNDS = {"float32": 1e-5, "bfloat16": 2.0 ** -5}  # max |err| / max |float64|
+WORKER_STEPS = 4
+
+
+def extras_phy_conv(torch, device) -> dict:
+    """16(e), PhyConv and the moment ops: a batch-8 phydiff condition
+    (bicubic x4 of 32x64 LR, 128x256) and the 32x64 LR itself (levels=4
+    leaves 2x4: the reflect pad of 2 reflects again) through PhyConv in
+    float32 and in bf16 (input and projection), against the same module in
+    float64 on the card: max |err| over max |float64 out| within
+    PHY_BOUNDS (float32 sums in another order; bf16 rounds the input and
+    each pyramid level, ~2^-9 each, and the products); the moments within
+    1e-6; moment_constraint_loss's gradient reaches `kernels`, finite,
+    nonzero and within 1e-6 of float64's."""
+    import copy
+
+    from srewd_tpu_torch.models import PhyConv
+    from srewd_tpu_torch.ops import moment_constraint_loss
+    from srewd_tpu_torch.ops.resize import bicubic_up4
+
+    g = torch.Generator(device=device).manual_seed(16)
+    lr = torch.randn(BATCH, *LR_HW, 1, generator=g, device=device)
+    torch.manual_seed(16)
+    f32 = PhyConv().to(device)
+    f64 = copy.deepcopy(f32).double()
+    bf16 = copy.deepcopy(f32)
+    bf16.dtype = torch.bfloat16
+    rows, worst = [], 0.0
+    for name, x in (("128x256", bicubic_up4(lr)), ("32x64", lr)):
+        want, want_m = f64(x.double())
+        for dt, mod in ((torch.float32, f32), (torch.bfloat16, bf16)):
+            with torch.no_grad():
+                out, mom = mod(x.to(dt))
+            err = ((out.double() - want).abs().max() / want.abs().max()).item()
+            m_err = ((mom.double() - want_m).abs().max() / want_m.abs().max()).item()
+            ms = cuda_ms(torch, torch.no_grad()(lambda: mod(x.to(dt))), 10)
+            rows.append({"input": name, "shape": list(x.shape), "out": list(out.shape),
+                         "dtype": str(dt).removeprefix("torch."), "rel_err": err,
+                         "moments_rel_err": m_err, "ms": ms,
+                         "finite": bool(torch.isfinite(out).all())})
+            check(rows[-1]["finite"] and err <= PHY_BOUNDS[rows[-1]["dtype"]] and m_err <= 1e-6,
+                  f"PhyConv on the card: {rows[-1]}")
+    target = torch.zeros_like(f32.kernels)
+    target[:, 0, 1] = 1.0
+    grads = {}
+    for tag, mod in (("float32", f32), ("float64", f64)):
+        mod.kernels.grad = None
+        moment_constraint_loss(mod.kernels, target.to(mod.kernels.dtype)).backward()
+        grads[tag] = mod.kernels.grad.double()
+    g_err = ((grads["float32"] - grads["float64"]).abs().max()
+             / grads["float64"].abs().max()).item()
+    check(bool(torch.isfinite(grads["float32"]).all()) and grads["float32"].abs().sum() > 0
+          and g_err <= 1e-6, f"moment_constraint_loss's gradient: rel err {g_err}")
+    return {"rows": rows, "bounds": PHY_BOUNDS, "moment_grad_rel_err": g_err}
+
+
+def extras_worker_batches(torch, device, phase6) -> dict:
+    """16(e), the worker pipeline: `worker_batches(worker_count=2)` (spawned
+    workers, started before the trainer is built) feeds WORKER_STEPS steps
+    of phase 6's trainer (its config, a fresh trainer); each batch equals
+    DataHandler.assemble's of the same timestamps bit for bit; losses
+    finite; the kernels' launches. `sec` from the handler to the last step."""
+    import numpy as np
+
+    from srewd_tpu_torch.cli import Config, build_data_handler, build_trainer
+    from srewd_tpu_torch.data.worker_pipeline import sample_order, worker_batches
+
+    opt = Config(phase6["config"], phase="train", experiment=False).get_opt()
+    opt["path"]["checkpoint"] = None
+    t0 = time.perf_counter()
+    dh = build_data_handler(opt)
+    batches = worker_batches(dh, "train", epoch=1, worker_count=2)  # workers start now
+    trainer = build_trainer(opt, device)
+    bs, ts = dh.train_batch_size, dh.train_timestamps
+    order = sample_order(len(ts), dh.shuffle, dh.seed + 7919, True)
+    equal, losses = [], []
+    reset_counts()
+    for i, batch in zip(range(WORKER_STEPS), batches):
+        want = dh.assemble(ts[order[i * bs:(i + 1) * bs]])
+        equal.append(all(batch[k].dtype == want[k].dtype and np.array_equal(batch[k], want[k])
+                         for k in want))
+        losses.append(trainer.train_on_batch(batch))
+    del batches  # the workers stop
+    sec = time.perf_counter() - t0
+    launches, plain = read_counts()
+    line = {"steps": WORKER_STEPS, "worker_count": 2, "batches_equal_assemble": equal,
+            "losses": losses, "sec": sec, "launches": launches, "plain_calls": plain}
+    check(all(equal) and len(equal) == WORKER_STEPS, f"worker batches: {line}")
+    check(all(math.isfinite(v) for v in losses), f"worker-fed losses: {losses}")
+    check(all(v > 0 for v in launches.values()) and sum(plain.values()) == 0,
+          f"worker-fed steps: launches {launches}, plain {plain}")
+    del trainer
+    torch.cuda.empty_cache()
+    return line
+
+
 def run_extras(torch, workdir, device, phase6, per_call, cnn_ckpt) -> dict:
     """Phase 16: the optimizers (a), the date mode (b), the renders (c) and
     wandb (d) on phase 6's checkpoint and config and phase 8's SimpleCNN.
@@ -3974,14 +4424,19 @@ def run_extras(torch, workdir, device, phase6, per_call, cnn_ckpt) -> dict:
             for name in ("lamb", "lion")}
     sampled = extras_sample(torch, workdir, device, phase6, per_call)
     rendered = extras_render(torch, workdir, device, phase6, cnn_ckpt)
+    t_e = time.perf_counter()
+    phy = extras_phy_conv(torch, device)
+    workers = extras_worker_batches(torch, device, phase6)
+    t_e = time.perf_counter() - t_e
     total = Counter()
     for launches in (runs["lamb"]["launches"], runs["lion"]["launches"], sampled["launches"],
-                     rendered["val_launches"]):
+                     rendered["val_launches"], workers["launches"]):
         total.update(launches)
     emit({"phase": "extras", "optimizer_step_vs_f64": step, "train": runs,
           "adam_step_host_ms_phase6": (phase6.get("step") or {}).get("step_host_ms"),
-          "sample_date": sampled, "render": rendered, "launches": dict(total),
-          "sec_optimizer_step_vs_f64": t_step, "sec": time.perf_counter() - t_start})
+          "sample_date": sampled, "render": rendered, "phy_conv": phy, "worker_batches": workers,
+          "launches": dict(total), "sec_optimizer_step_vs_f64": t_step,
+          "sec_phy_conv_and_workers": t_e, "sec": time.perf_counter() - t_start})
     return dict(total)
 
 
@@ -4083,10 +4538,12 @@ def main(argv: list) -> int:
     bf16_steps = argv[1] if len(argv) == 2 and argv[0] == "--bf16-step" else None
     worker = argv[1] if len(argv) >= 3 and argv[0] == "--worker" else None
     if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"], ["--ddp"],
-                    ["--quality"], ["--extras"], ["--k2-wide"]) and not (
-            (stress or bf16_steps or "").isdigit()) and worker not in ("train-main", "gloo-step"):
+                    ["--quality"], ["--extras"], ["--k2-wide"], ["--gloo-cuda"]) and not (
+            (stress or bf16_steps or "").isdigit()) and worker not in (
+                "train-main", "gloo-step", "shard-step", "gloo-cuda"):
         print(f"chip_smoke: unknown arguments {argv}; the options are --profile, "
-              "--train-kernels, --serve, --ddp, --quality, --extras, --k2-wide, --stress N "
+              "--train-kernels, --serve, --ddp, --quality, --extras, --k2-wide, --gloo-cuda, "
+              "--stress N "
               "and --bf16-step N", file=sys.stderr)
         return 2
     import torch
@@ -4106,6 +4563,10 @@ def main(argv: list) -> int:
         return worker_train_main(argv[2], argv[3], argv[4:])
     if worker == "gloo-step":
         return worker_gloo_step(*argv[2:])
+    if worker == "shard-step":
+        return worker_shard_step(*argv[2:])
+    if worker == "gloo-cuda":
+        return worker_gloo_cuda(*argv[2:])
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     mode = "".join("_" + a.lstrip("-") for a in argv)  # one file per mode
     KEEP["file"] = open(os.path.join(REPO, "chiprun_out", f"chip_smoke{mode}.jsonl"), "w")
@@ -4118,6 +4579,13 @@ def main(argv: list) -> int:
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    if argv == ["--gloo-cuda"]:
+        os.makedirs(BUILD, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
+            run_gloo_cuda(workdir)
+        say(smi)
+        return 0
 
     from srewd_tpu_torch.ops import _build
     from srewd_tpu_torch.ops import fused_groupnorm

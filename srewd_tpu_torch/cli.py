@@ -75,7 +75,8 @@ def sampler_kwargs(opt: dict) -> dict:
     return kw
 
 
-def build_trainer(opt: dict, device: torch.device, dtype: torch.dtype | None = None):
+def build_trainer(opt: dict, device: torch.device, dtype: torch.dtype | None = None,
+                  model_shard_min_dim: int | None = None):
     """The DiffusionTrainer of opt (counterpart of srewd_tpu.cli.build_trainer,
     without the multihost branch): the model in the compute `dtype` (None:
     float32) over float32 parameters with seeded random weights, the encoder
@@ -83,7 +84,8 @@ def build_trainer(opt: dict, device: torch.device, dtype: torch.dtype | None = N
     init, before resume), the optimizer with optional global-norm clipping
     and finetune_norm, EMA, checkpoints, the sampler settings, and resume.
     Parameters, optimizer moments and the EMA are float32 whatever `dtype`
-    is."""
+    is. `model_shard_min_dim` is handed to the trainer (parameter sharding
+    over the mesh's "model" axis; an API option, no CLI flag)."""
     from .diffusion.schedule import Schedule
     from .models.factory import build_model
     from .training.trainer import DiffusionTrainer
@@ -112,6 +114,7 @@ def build_trainer(opt: dict, device: torch.device, dtype: torch.dtype | None = N
         checkpoint_dir=opt["path"].get("checkpoint"),
         checkpoint_keep=int(keep) if keep else None,
         sampler_kwargs=sampler_kwargs(opt),
+        model_shard_min_dim=model_shard_min_dim,
     )
     resume = opt["path"].get("resume_state")
     if resume:

@@ -102,18 +102,25 @@ class DiffusionModel:
     def with_params(self, params: dict, device) -> "DiffusionModel":
         """A new DiffusionModel of this one's structure on `device`, in eval
         mode without gradients, holding a copy of `params` (`params()`'s
-        form): the serving layer's snapshot. On a card the copies are done
+        form): the serving layer's snapshot. This model may lie on the meta
+        device (a sharded trainer's `whole_model`). On a card the copies are done
         when it returns, so another stream may read them at once."""
         device = torch.device(device)
+
+        def copy_of(module, state):
+            if module is None:
+                return None
+            snap = copy.deepcopy(module)
+            if next(snap.parameters()).is_meta:  # a structure without storage
+                snap.load_state_dict({k: v.to(device, copy=True) for k, v in state.items()},
+                                     strict=True, assign=True)
+            else:
+                snap.to(device).load_state_dict(state, strict=True)
+            return snap.requires_grad_(False).eval()
+
         snap = dataclasses.replace(
-            self, unet=copy.deepcopy(self.unet).to(device),
-            encoder=None if self.encoder is None else copy.deepcopy(self.encoder).to(device))
-        snap.unet.load_state_dict(params["unet"], strict=True)
-        if snap.encoder is not None:
-            snap.encoder.load_state_dict(params["encoder"], strict=True)
-        for m in (snap.unet, snap.encoder):
-            if m is not None:
-                m.requires_grad_(False).eval()
+            self, unet=copy_of(self.unet, params["unet"]),
+            encoder=copy_of(self.encoder, params.get("encoder")))
         if device.type == "cuda":
             torch.cuda.current_stream(device).synchronize()
         return snap

@@ -25,6 +25,11 @@ import threading
 
 import torch
 
+from .moments import k2m, m2k, moment_constraint_loss
+
+__all__ = ["count", "k2m", "launch", "m2k", "moment_constraint_loss", "reference_ops",
+           "use_op", "use_plain"]
+
 _FORCE_PLAIN = contextvars.ContextVar("srewd_torch_force_plain", default=False)
 _COUNT_LOCK = threading.Lock()
 

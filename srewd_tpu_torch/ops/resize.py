@@ -2,8 +2,8 @@
 
 Port of srewd_tpu/ops/resize.py. A 1-D resize from n_in to n_out is a dense
 [n_out, n_in] matrix built in float64 numpy (Keys cubic kernel, A=-0.75,
-half-pixel centres, edge-clamped taps); a 2-D resize is two float32
-matmuls. The matrix is rebuilt here because the JAX module imports jax.
+half-pixel centres, edge-clamped taps; or bilinear, for PhyConv's
+pyramid); a 2-D resize is two float32 matmuls. The matrix is rebuilt here because the JAX module imports jax.
 """
 
 from __future__ import annotations
@@ -26,11 +26,13 @@ def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """Dense 1-D bicubic resampling matrix W with out = W @ in (float32).
+def resize_matrix(n_in: int, n_out: int, method: str = "bicubic") -> np.ndarray:
+    """Dense 1-D resampling matrix W with out = W @ in (float32).
 
-    The cache holds one small read-only matrix per (n_in, n_out); callers
-    copy it into a tensor.
+    `method` "bicubic" (the default) or "bilinear", both with half-pixel
+    source coordinates (align_corners=False) and edge-clamped taps. The
+    cache holds one small read-only matrix per (n_in, n_out, method);
+    callers copy it into a tensor.
     """
     scale = n_in / n_out
     w = np.zeros((n_out, n_in), dtype=np.float64)
@@ -38,11 +40,34 @@ def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
         s = (o + 0.5) * scale - 0.5
         i = int(np.floor(s))
         frac = s - i
-        taps = range(i - 1, i + 3)
-        weights = _cubic_kernel(np.array([frac + 1.0, frac, frac - 1.0, frac - 2.0]))
+        if method == "bicubic":
+            taps = range(i - 1, i + 3)
+            weights = _cubic_kernel(np.array([frac + 1.0, frac, frac - 1.0, frac - 2.0]))
+        elif method == "bilinear":
+            taps = (i, i + 1)
+            weights = np.array([1.0 - frac, frac])
+        else:
+            raise ValueError(f"unknown resize method: {method}")
         for tap, weight in zip(taps, weights):
             w[o, int(np.clip(tap, 0, n_in - 1))] += weight
     return w.astype(np.float32)
+
+
+def resize2d(x: torch.Tensor, out_hw: tuple, method: str = "bicubic") -> torch.Tensor:
+    """Resize NHWC fields to `out_hw` = (H_out, W_out), as JAX's resize2d:
+    one matmul per axis that changes size, in float32 (float64 for a
+    float64 input), the result in x's dtype."""
+    _, h_in, w_in, _ = x.shape
+    h_out, w_out = out_hw
+    ct = torch.promote_types(x.dtype, torch.float32)
+    out = x.to(ct)
+    if h_out != h_in:
+        wh = torch.from_numpy(resize_matrix(h_in, h_out, method)).to(x.device, ct)
+        out = torch.einsum("oh,bhwc->bowc", wh, out)
+    if w_out != w_in:
+        ww = torch.from_numpy(resize_matrix(w_in, w_out, method)).to(x.device, ct)
+        out = torch.einsum("ow,bhwc->bhoc", ww, out)
+    return out.to(x.dtype)
 
 
 def bicubic_up4(x: torch.Tensor) -> torch.Tensor:

@@ -294,10 +294,12 @@ def main(argv=None) -> dict:
         print(f"[train] skipped — reusing {args.reuse_params}", flush=True)
     else:
         train(trainer, dh, args.iters, device, loss_log)
-        state = {"params": trainer.model.unet.state_dict(), "ema_params": trainer.ema}
+        # whole leaves, also from a sharded trainer
+        raw = trainer.params()
+        ema = trainer.params(use_ema=True) if trainer.ema is not None else {}
+        state = {"params": raw["unet"], "ema_params": ema.get("unet")}
         if trainer.model.encoder is not None:
-            state.update(encoder_params=trainer.model.encoder.state_dict(),
-                         ema_encoder_params=trainer.ema_encoder)
+            state.update(encoder_params=raw["encoder"], ema_encoder_params=ema.get("encoder"))
         torch.save(state, work / "params.pt.tmp")
         os.replace(work / "params.pt.tmp", work / "params.pt")
         print(f"[train] params saved -> {work / 'params.pt'}", flush=True)

@@ -268,19 +268,14 @@ class SamplerService:
         without it the service runs in normalized space. `devices` defaults
         to the trainer's device.
         """
-        model = trainer.model
-        ema = use_ema and trainer.ema is not None
-        params = {"unet": trainer.ema if ema else model.unet.state_dict()}
-        if model.encoder is not None:
-            params["encoder"] = (trainer.ema_encoder if ema and trainer.ema_encoder is not None
-                                 else model.encoder.state_dict())
+        params = trainer.params(use_ema)  # whole leaves, also under sharding
         if data_handler is not None:
             sc = data_handler.batch_scalers
             kw.setdefault("transform_lr", sc["lr"].transform)
             kw.setdefault("inverse_hr", sc["hr"].inverse)
         kw.setdefault("sampler_kwargs", trainer.sampler_kwargs)
         kw.setdefault("devices", trainer.device)
-        return cls(model, params, trainer.schedule_val, **kw)
+        return cls(trainer.whole_model, params, trainer.schedule_val, **kw)
 
     @classmethod
     def from_checkpoint(cls, config_path: str, model_path: Optional[str] = None,

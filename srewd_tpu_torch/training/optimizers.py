@@ -13,6 +13,12 @@ torch._foreach_* ops (no Python loop per tensor).
 scaled by max_norm / ||g|| when ||g|| >= max_norm (torch's clip_grad_norm_
 adds 1e-6 to the norm; this does not). `norm_parameters` is the
 finetune_norm trainable set: the GroupNorm affine parameters only.
+
+Sharded parameters (parallel/distributed.py ShardedModule) hold a rank's
+rows of a leaf. Adam's and Lion's steps are elementwise and need nothing;
+the norms of Lamb's trust ratio and of the clip are the full leaves',
+which `leaf_norms(params, tensors)` gives: the local norms by default,
+ShardedModule.leaf_norms under sharding.
 """
 
 from __future__ import annotations
@@ -20,6 +26,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+
+def local_leaf_norms(params: list, tensors: list) -> torch.Tensor:
+    """The 2-norm of each tensor (`params` unused: the leaves are whole)."""
+    return torch.stack(torch._foreach_norm(tensors))
 
 
 def get_optimizer(name: str, params, lr: float, **kwargs) -> torch.optim.Optimizer:
@@ -72,12 +82,14 @@ class Lamb(torch.optim.Optimizer):
     (default 0), then each tensor's update scaled by its trust ratio
     ||p|| / ||u||, which is 1 where either norm is 0 (a zero-initialised
     bias, a zero update), then p -= lr * update. State per parameter:
-    `exp_avg` (optax's mu), `exp_avg_sq` (nu) and `step` (count)."""
+    `exp_avg` (optax's mu), `exp_avg_sq` (nu) and `step` (count). The
+    attribute `leaf_norms` gives the norms (module docstring)."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-6, eps_root: float = 0.0, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
                                       weight_decay=weight_decay))
+        self.leaf_norms = local_leaf_norms
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -101,8 +113,8 @@ class Lamb(torch.optim.Optimizer):
             torch._foreach_div_(update, denom)
             if group["weight_decay"]:
                 torch._foreach_add_(update, params, alpha=group["weight_decay"])
-            p_norm = torch.stack(torch._foreach_norm(params))
-            u_norm = torch.stack(torch._foreach_norm(update))
+            p_norm = self.leaf_norms(params, params)
+            u_norm = self.leaf_norms(params, update)
             ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                                 p_norm / u_norm)
             torch._foreach_mul_(update, list(ratio.unbind()))
@@ -141,13 +153,15 @@ class Lion(torch.optim.Optimizer):
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float,
+                         leaf_norms=local_leaf_norms) -> torch.Tensor:
     """Scale the gradients in place as optax.clip_by_global_norm; returns the
     global norm (a device scalar, not read on the host)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    held = [p for p in params if p.grad is not None]
+    if not held:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    grads = [p.grad for p in held]
+    norm = torch.linalg.vector_norm(leaf_norms(held, grads))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm

@@ -41,6 +41,19 @@ every rank passes a barrier; every rank resumes from the same one. Logged
 losses are averaged over the ranks when they are read, and validation
 gathers SR, HR and months before the metrics (`run_validation`).
 
+Parameter sharding (`model_shard_min_dim`, as the JAX trainer's; no CLI
+flag, as JAX's has none): with a mesh whose "model" axis is larger than 1
+(`parallel.init_distributed(model_parallel=)`), the loss
+module is a ShardedModule (parallel/distributed.py) in place of DDP: the
+leaves `param_placement` picks are held as this rank's rows, so Adam's,
+Lamb's and Lion's moments and the EMA are too; the gradient clip and
+Lamb's trust ratios take the full leaves' norms (`leaf_norms`). `save()`
+gathers every sharded tensor (parameters, moments, EMA) and writes
+today's checkpoint format, so a sharded run resumes into an unsharded
+trainer and back; `resume()` cuts it to this rank's rows again. Sampling
+runs on a copy of the model loaded with the gathered weights. Unset, or
+with a "model" axis of 1, the trainer is the data-parallel one above.
+
 `run_training` feeds the steps from `train.device_data_cache`'s
 DeviceDataset (the split resident on the device; one process only) or else
 through a DevicePrefetcher (host batches assembled and copied ahead in a
@@ -72,12 +85,13 @@ from ..data.prefetch import DevicePrefetcher, PinnedCopy
 from ..diffusion.schedule import Schedule
 from ..models.factory import DiffusionModel
 from ..ops.resize import bicubic_up4
-from ..parallel import all_gather_rows, barrier, data_parallel, mean_across, rank, world_size
+from ..parallel import (all_gather_rows, barrier, current_mesh, data_parallel, mean_across,
+                        model_size, rank, shard_parameters, world_size)
 from ..utils.profiling import StepTimer, annotate, trace
 from ..utils.seeding import member_seed
 from .checkpoint import CheckpointManager, load_tolerant
 from .metrics import TrainMetrics, ValidationMetrics, create_metric_dict
-from .optimizers import clip_by_global_norm_, get_optimizer, norm_parameters
+from .optimizers import Lamb, clip_by_global_norm_, get_optimizer, norm_parameters
 
 _VAL_STREAM = 2_000_000_000  # the JAX trainer's fold for validation keys
 
@@ -133,6 +147,7 @@ class DiffusionTrainer:
         checkpoint_dir: Optional[str] = None,
         checkpoint_keep: Optional[int] = None,
         sampler_kwargs: Optional[dict] = None,
+        model_shard_min_dim: Optional[int] = None,
     ):
         self.model = model
         self.device = torch.device(device)
@@ -149,42 +164,111 @@ class DiffusionTrainer:
         self.epoch = 0
         model.to(self.device)
         unet, encoder = model.unet, model.encoder
+        if encoder is not None and model.lock_encoder:
+            encoder.requires_grad_(False)
+        self.mesh = current_mesh()
+        self.model_shard_min_dim = model_shard_min_dim
+        self._sharded = None
+        self._val_model: Optional[DiffusionModel] = None
+        loss = _Loss(model, schedule_train)
+        if model_shard_min_dim is not None and model_size(self.mesh) > 1:
+            # the sampling copy's structure, on the meta device: sample_batch
+            # assigns the gathered weights into it
+            self._val_model = _frozen_copy(model).to("meta")
+            self._sharded = shard_parameters(loss, self.mesh, model_shard_min_dim)
         # finetune_norm: only the GroupNorm affine parameters are stepped
         self.trainable = ([p for _, p in norm_parameters(unet)] if finetune_norm
                           else list(unet.parameters()))
         if encoder is not None and not model.lock_encoder and not finetune_norm:
             self.trainable += list(encoder.parameters())
-        if encoder is not None and model.lock_encoder:
-            encoder.requires_grad_(False)
         self.optimizer = get_optimizer(optimizer, self.trainable, lr)
-        self._loss = data_parallel(_Loss(model, schedule_train), self.device)
+        if self._sharded is not None:
+            names = {id(p): n for n, p in loss.named_parameters()}
+            self._trainable_names = [names[id(p)] for p in self.trainable]
+            if isinstance(self.optimizer, Lamb):
+                self.optimizer.leaf_norms = self._sharded.leaf_norms
+            self._loss = self._sharded
+        else:
+            self._loss = data_parallel(loss, self.device)
         self.ema = self.ema_encoder = None
         if ema_decay is not None:
             self.ema = _copy_state(unet)
             self.ema_encoder = _copy_state(encoder) if encoder is not None else None
         self.ckpt = CheckpointManager(checkpoint_dir, keep=checkpoint_keep) if checkpoint_dir else None
         self._generator = torch.Generator(device=self.device)
-        self._val_model: Optional[DiffusionModel] = None
 
     # ------------------------------------------------------------------ state
+    def _full(self, state: dict, prefix: str) -> dict:
+        """`state` of the submodule at `prefix` ("unet." or "encoder.") with
+        its sharded entries gathered whole (itself when unsharded)."""
+        return state if self._sharded is None else self._sharded.full_state(state, prefix)
+
+    def _local(self, state: dict, prefix: str) -> dict:
+        """The inverse: a full `state`'s sharded entries cut to this rank's rows."""
+        return state if self._sharded is None else self._sharded.local_state(state, prefix)
+
+    def _moments(self, sd: dict, gather: bool) -> dict:
+        """`sd`, an optimizer state_dict, with each sharded leaf's moments
+        gathered whole (`gather`) or cut to this rank's rows (a full one,
+        `resume`); `sd` itself when unsharded."""
+        sh = self._sharded
+        if sh is None:
+            return sd
+        slots, tensors, dims = [], [], []
+        for i, name in enumerate(self._trainable_names):
+            for k, v in sd["state"].get(i, {}).items():
+                if name in sh.dims and torch.is_tensor(v) and v.ndim:  # not `step`
+                    slots.append((i, k))
+                    tensors.append(v)
+                    dims.append(sh.dims[name])
+        moved = (sh.gather(tensors, dims) if gather else
+                 [t.chunk(sh.m, d)[sh.r].clone() for t, d in zip(tensors, dims)])
+        state = {i: dict(st) for i, st in sd["state"].items()}
+        for (i, k), t in zip(slots, moved):
+            state[i][k] = t
+        return {**sd, "state": state}
+
     def state(self) -> dict:
-        state = {"params": self.model.unet.state_dict(),
-                 "opt_state": self.optimizer.state_dict(),
+        """The checkpoint's state, whole leaves (every rank gathers under
+        sharding)."""
+        state = {"params": self._full(self.model.unet.state_dict(), "unet."),
+                 "opt_state": self._moments(self.optimizer.state_dict(), gather=True),
                  "step": self.step, "epoch": self.epoch}
         if self.model.encoder is not None:
-            state["encoder_params"] = self.model.encoder.state_dict()
+            state["encoder_params"] = self._full(self.model.encoder.state_dict(), "encoder.")
         if self.ema is not None:
-            state["ema_params"] = self.ema
+            state["ema_params"] = self._full(self.ema, "unet.")
         if self.ema_encoder is not None:
-            state["ema_encoder_params"] = self.ema_encoder
+            state["ema_encoder_params"] = self._full(self.ema_encoder, "encoder.")
         return state
 
+    def params(self, use_ema: bool = False) -> dict:
+        """The weights as DiffusionModel.params() gives them (the EMA's with
+        `use_ema`, where the trainer keeps one), whole leaves: under
+        sharding every rank gathers them."""
+        ema = use_ema and self.ema is not None
+        out = {"unet": self._full(self.ema if ema else self.model.unet.state_dict(), "unet.")}
+        if self.model.encoder is not None:
+            enc = (self.ema_encoder if ema and self.ema_encoder is not None
+                   else self.model.encoder.state_dict())
+            out["encoder"] = self._full(enc, "encoder.")
+        return out
+
+    @property
+    def whole_model(self) -> DiffusionModel:
+        """The trained DiffusionModel's structure with whole leaves, for
+        DiffusionModel.with_params: the model itself, or under sharding its
+        copy on the meta device (shapes, no storage)."""
+        return self.model if self._sharded is None else self._val_model
+
     def save(self) -> Optional[str]:
-        """Rank 0 writes the checkpoint; every rank waits for it and gets its path."""
+        """Rank 0 writes the checkpoint (under sharding every rank gathers
+        for it); every rank waits for it and gets its path."""
         if self.ckpt is None:
             return None
+        state = self.state() if rank() == 0 or self._sharded is not None else None
         if rank() == 0:
-            path = self.ckpt.save(self.state(), self.step, self.epoch)
+            path = self.ckpt.save(state, self.step, self.epoch)
         else:
             path = self.ckpt.path_for(self.step, self.epoch)
         barrier()
@@ -193,16 +277,18 @@ class DiffusionTrainer:
     def resume(self, path: str) -> None:
         """Restore params, optimizer state, EMA, step and epoch."""
         state = CheckpointManager.restore(path, map_location=self.device)
-        self.model.unet.load_state_dict(state["params"], strict=True)
+        self.model.unet.load_state_dict(self._local(state["params"], "unet."), strict=True)
         encoder = self.model.encoder
         if encoder is not None:
-            encoder.load_state_dict(state["encoder_params"], strict=True)
-        self.optimizer.load_state_dict(state["opt_state"])
+            encoder.load_state_dict(self._local(state["encoder_params"], "encoder."),
+                                    strict=True)
+        self.optimizer.load_state_dict(self._moments(state["opt_state"], gather=False))
         if self.ema is not None:
-            src = state.get("ema_params") or state["params"]
+            src = self._local(state.get("ema_params") or state["params"], "unet.")
             self.ema = {k: v.detach().clone().to(self.device) for k, v in src.items()}
         if self.ema_encoder is not None:
-            src = state.get("ema_encoder_params") or state["encoder_params"]
+            src = self._local(state.get("ema_encoder_params") or state["encoder_params"],
+                              "encoder.")
             self.ema_encoder = {k: v.detach().clone().to(self.device) for k, v in src.items()}
         self.step = int(state["step"])
         self.epoch = int(state["epoch"])
@@ -222,9 +308,10 @@ class DiffusionTrainer:
         parts); optimizer state and counters start fresh, and the EMA
         starts from the loaded weights."""
         loaded = CheckpointManager.restore(path, map_location=self.device)
-        load_tolerant(self.model.unet, loaded.get("params", loaded), "unet")
+        load_tolerant(self.model.unet, self._local(loaded.get("params", loaded), "unet."), "unet")
         if self.model.encoder is not None and loaded.get("encoder_params") is not None:
-            load_tolerant(self.model.encoder, loaded["encoder_params"], "encoder")
+            load_tolerant(self.model.encoder, self._local(loaded["encoder_params"], "encoder."),
+                          "encoder")
         self.reset_ema()
 
     # ------------------------------------------------------------------ steps
@@ -252,9 +339,12 @@ class DiffusionTrainer:
             loss = self._loss(b, self._generator)
         with annotate("backward"):
             loss.backward()
+            if self._sharded is not None:
+                self._sharded.reduce_gradients()
         with annotate("optimizer"):
             if self.grad_clip is not None:
-                clip_by_global_norm_(self.trainable, self.grad_clip)
+                clip_by_global_norm_(self.trainable, self.grad_clip, *(
+                    () if self._sharded is None else (self._sharded.leaf_norms,)))
             self.optimizer.step()
             self.step += 1
             if self.ema is not None and self.step >= self.ema_start:
@@ -291,21 +381,32 @@ class DiffusionTrainer:
         JAX trainer's `fold_in(key, fold)`."""
         val = self._val_model
         if val is None:
-            val = self._val_model = copy.deepcopy(self.model)
-            for module in (m for m in (val.unet, val.encoder) if m is not None):
-                for p in module.parameters():
-                    p.grad = None
-                    p.requires_grad_(False)
-        ema = use_ema and self.ema is not None
-        val.unet.load_state_dict(self.ema if ema else self.model.unet.state_dict(), strict=True)
+            val = self._val_model = _frozen_copy(self.model)
+        # under sharding: the gathered weights, assigned into the meta copy
+        # (no second copy), which goes back to the meta device afterwards
+        sharded = self._sharded is not None
+        params = self.params(use_ema)
+        val.unet.load_state_dict(params["unet"], strict=True, assign=sharded)
         if val.encoder is not None:
-            val.encoder.load_state_dict(
-                self.ema_encoder if ema else self.model.encoder.state_dict(), strict=True)
+            val.encoder.load_state_dict(params["encoder"], strict=True, assign=sharded)
         b = self._device_batch(batch)
         gen = torch.Generator(device=self.device).manual_seed(
             member_seed(step_seed(self.seed, _VAL_STREAM + self.step), fold))
-        return val.generate_sr({"LR": b["LR"]}, self.schedule_val, generator=gen,
-                               **self.sampler_kwargs)
+        out = val.generate_sr({"LR": b["LR"]}, self.schedule_val, generator=gen,
+                              **self.sampler_kwargs)
+        if sharded:
+            val.to("meta")
+        return out
+
+
+def _frozen_copy(model: DiffusionModel) -> DiffusionModel:
+    """A copy of `model` whose parameters take no gradient (sampling's)."""
+    val = copy.deepcopy(model)
+    for module in (m for m in (val.unet, val.encoder) if m is not None):
+        for p in module.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+    return val
 
 
 def _copy_state(module) -> dict:

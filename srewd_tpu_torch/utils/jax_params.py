@@ -12,7 +12,8 @@ structure (levels, res blocks, mid blocks) is read off the tree itself.
 Encoders: SimpleCNN `Conv_{0,1,2}`; RRDBNet `Conv_0` (first),
 `RRDB_i/ResidualDenseBlock5C_r/Conv_c`, then `Conv_1..Conv_5` (trunk,
 upconv1, upconv2, HRconv, last), as `torch_convert.convert_simple_cnn_state`
-and `convert_rrdb_state` name them.
+and `convert_rrdb_state` name them. PhyConv: `kernels` as it is, `Conv_0`
+its 1x1 projection (`conv`).
 
 Layouts: Conv [kh,kw,I,O] -> [O,I,kh,kw]; Dense [I,O] -> Linear [O,I];
 ConvTranspose [kh,kw,I,O] -> ConvTranspose2d [I,O,kh,kw] with the kernel
@@ -240,6 +241,15 @@ def _encoder_key_map(tree: dict) -> "OrderedDict[str, tuple]":
     return _check_consumed(t)
 
 
+def _phy_conv_key_map(tree: dict) -> "OrderedDict[str, tuple]":
+    """The same for a flax PhyConv tree."""
+    t = _Spec(tree)
+    t.map["kernels"] = t.get("kernels")
+    t.map["conv.weight"] = _conv(t.get("Conv_0", "kernel"))
+    t.map["conv.bias"] = t.get("Conv_0", "bias")
+    return _check_consumed(t)
+
+
 def _get(tree: dict, path: tuple) -> np.ndarray:
     node = tree
     for p in path:
@@ -295,6 +305,16 @@ def encoder_state_from_jax(tree: dict) -> "OrderedDict[str, torch.Tensor]":
 def jax_tree_from_encoder_state(state: Mapping, like: dict) -> dict:
     """jax_tree_from_unet_state for a SimpleCNN or RRDBNet tree."""
     return _tree(_encoder_key_map(like), state)
+
+
+def phy_conv_state_from_jax(tree: dict) -> "OrderedDict[str, torch.Tensor]":
+    """unet_state_from_jax for a PhyConv tree."""
+    return _state(_phy_conv_key_map(tree), tree)
+
+
+def jax_tree_from_phy_conv_state(state: Mapping, like: dict) -> dict:
+    """jax_tree_from_unet_state for a PhyConv tree."""
+    return _tree(_phy_conv_key_map(like), state)
 
 
 def optimizer_moments(optimizer, module) -> dict:

@@ -205,6 +205,29 @@ def test_importing_the_whole_port_loads_no_jax_package_module():
     assert len(mods) > 20
 
 
+NEW_MODULES = ("parallel/mesh.py", "data/worker_pipeline.py", "models/phy_conv.py",
+               "ops/moments.py")
+
+
+def test_import_scan_covers_the_sharding_phy_conv_and_worker_modules():
+    """The mesh, the worker pipeline, PhyConv and the moment ops are among
+    the scanned modules, and the imports their functions make at run time
+    (the device mesh, torch.func, the DataLoader) load no JAX package
+    module either."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources() if p.startswith(PORT)}
+    for rel in NEW_MODULES:
+        assert rel.replace("/", os.sep) in scanned, rel
+    mods = ["srewd_tpu_torch." + rel[:-3].replace("/", ".") for rel in NEW_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            "import torch.distributed.device_mesh, torch.func, torch.utils.data\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'srewd_tpu')]\nprint(len(bad), bad)")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "0 []", r.stdout
+
+
 # absent on the card's machine: a port module may import them only inside a
 # function, where they are used (wandb, xarray, lmdb) or never (the rest)
 OPTIONAL = ("matplotlib", "PIL", "cartopy", "wandb", "xarray", "lmdb")
