@@ -1,0 +1,15 @@
+"""The share of its roofline of K3's backward, in % of the profiled
+stretch's device time of the kernels named "gn_bwd_kernel" and
+"gn_wb_kernel": the least time of the work that the reference's calls of
+a unit need (work/: the larger of operations over
+the peak and bytes over 3.35 TB/s), times the units."""
+
+from perfbench import work
+
+
+def read(ctx):
+    device_s = ctx.trace.kernel_seconds("gn_bwd_kernel", "gn_wb_kernel")
+    if "k3_bwd" not in ctx.kernel_work or device_s <= 0:
+        return None
+    bound = work.kernel_bound_seconds(ctx.kernel_work, ctx.dtype)["k3_bwd"] * ctx.units
+    return 100.0 * bound / device_s
