@@ -1,0 +1,9 @@
+"""Idle ms of the card that ended with an operation launched inside the
+program's `unet` span (one UNet call, models/factory.py), per `unet`
+span in the profiled stretch (perfbench/spans.py defines a wait)."""
+
+from perfbench import spans
+
+
+def read(ctx):
+    return spans.ms_per(ctx.trace, spans.wait_seconds, "unet", per="unet")

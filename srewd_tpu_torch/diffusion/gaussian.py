@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..parallel import draw_rows, rows
+from ..utils.profiling import annotate
 from .schedule import Schedule
 
 # denoise_fn(x_t, noise_level[B]) -> predicted epsilon; conditioning closed over.
@@ -242,9 +243,10 @@ def run_chain(
     steps = torch.arange(plan.n_steps, device=device)
     frames: list = []
     for s, nid in enumerate(plan.noise_ids):
-        noise = zero if nid is None else _draw(shape, generator, device, noises, nid)
-        img, prev_x0 = chain_step(plan.kind, plan.coef, steps[s], img, denoise_fn, noise,
-                                  prev_x0, clip_denoised)
+        with annotate("chain.step"):
+            noise = zero if nid is None else _draw(shape, generator, device, noises, nid)
+            img, prev_x0 = chain_step(plan.kind, plan.coef, steps[s], img, denoise_fn, noise,
+                                      prev_x0, clip_denoised)
         _frames(img, frames, s, plan.n_steps, keep_every)
     return _result(img, frames, keep_every)
 

@@ -52,6 +52,7 @@ from ..diffusion.schedule import Schedule
 from ..ops.finite_diff import fd_stencils
 from ..ops.resize import bicubic_up4
 from ..parallel import draw_rows, rows
+from ..utils.profiling import annotate
 from .rrdb import RRDBNet
 from .simple_cnn import SimpleCNN
 from .unet import VARIANTS, WeatherUNet
@@ -148,9 +149,10 @@ class DiffusionModel:
 
     def encode_rrdb(self, lr: torch.Tensor) -> tuple:
         """(the RRDBNet's SR output, its concatenated feature taps)."""
-        with self._encoder_grad():
-            sr_pred, feats = self.encoder(lr, get_fea=True)
-        return sr_pred, self.unet.project_rrdb_features(feats)
+        with annotate("encoder"):
+            with self._encoder_grad():
+                sr_pred, feats = self.encoder(lr, get_fea=True)
+            return sr_pred, self.unet.project_rrdb_features(feats)
 
     def condition(self, batch: dict) -> torch.Tensor:
         """The image-space condition ('SR' slot semantics)."""
@@ -195,19 +197,21 @@ class DiffusionModel:
         the global batch, and the rank takes its rows (parallel/).
         """
         hr = batch["HR"]
-        cond = self.condition(batch)
+        with annotate("conditioning"):  # draws nothing: the draws below keep their order
+            cond = self.condition(batch)
+            kwargs = self._conditioning(cond)
+            rrdb_sr = None
+            if self.arch in _RRDB_ARCHS:
+                rrdb_sr, kwargs["rrdb_feats"] = self.encode_rrdb(batch["LR"])
         x_start = hr if self.arch == "sr3" else hr - cond
         n = hr.shape[0]
         _, gamma = draw_time_and_gamma(schedule, n, generator=generator, t=t, u=u)
         noise = draw_rows(torch.randn, n, *x_start.shape[1:], generator=generator,
                           device=x_start.device) if noise is None else noise[rows(n)]
         x_noisy = q_sample(x_start, gamma, noise)
-        kwargs = self._conditioning(cond)
-        rrdb_sr = None
-        if self.arch in _RRDB_ARCHS:
-            rrdb_sr, kwargs["rrdb_feats"] = self.encode_rrdb(batch["LR"])
         self.unet.train(train)
-        eps = self.unet(self._x_in(cond, x_noisy), gamma, **kwargs)  # in the compute dtype
+        with annotate("unet"):
+            eps = self.unet(self._x_in(cond, x_noisy), gamma, **kwargs)  # in the compute dtype
         if self.loss_type == "l1":
             loss = (noise - eps).abs().mean()
         elif self.loss_type == "l2":
@@ -231,13 +235,15 @@ class DiffusionModel:
             _, consts["rrdb_feats"] = self.encode_rrdb(batch["LR"])
         consts.update(self._conditioning(cond))
         if hasattr(unet, "fd_spliter"):
-            consts["cond_feats"] = unet(cond, cond_features_only=True)
+            with annotate("unet"):
+                consts["cond_feats"] = unet(cond, cond_features_only=True)
         return cond, consts
 
     def chain_eps(self, unet: WeatherUNet, cond: torch.Tensor, consts: dict,
                   x_t: torch.Tensor, noise_level: torch.Tensor) -> torch.Tensor:
         """One UNet call of a reverse chain: eps for (x_t, noise_level)."""
-        return unet(self._x_in(cond, x_t), noise_level, **consts)
+        with annotate("unet"):
+            return unet(self._x_in(cond, x_t), noise_level, **consts)
 
     @torch.no_grad()
     def denoiser(self, batch: dict) -> tuple:
@@ -245,10 +251,11 @@ class DiffusionModel:
 
         The chain-constant conditioning (`chain_conditioning`) is computed
         here, once, and so is the cast of the UNet's weights to its compute
-        dtype (`_chain_unet`).
+        dtype (`_chain_unet`), both inside one `conditioning` span.
         """
-        unet = self._chain_unet()
-        cond, consts = self.chain_conditioning(batch, unet)
+        with annotate("conditioning"):
+            unet = self._chain_unet()
+            cond, consts = self.chain_conditioning(batch, unet)
 
         def denoise_fn(x_t, noise_level):
             return self.chain_eps(unet, cond, consts, x_t, noise_level)
@@ -289,18 +296,19 @@ class DiffusionModel:
         also return every keep_every-th intermediate field, residual added
         back, as [S // keep_every, B, H, W, C].
         """
-        cond, denoise_fn = self.denoiser(batch)
-        if plan is None:
-            plan = chain_plan(schedule, sampler, steps=ddim_steps, eta=ddim_eta,
-                              tau_spacing=tau_spacing, device=cond.device)
-        out = run_chain(plan, denoise_fn, tuple(cond.shape), device=cond.device,
-                        generator=generator, init=init, noises=noises,
-                        clip_denoised=clip_denoised, keep_every=keep_every)
-        img, frames = out if keep_every is not None else (out, None)
-        img = self.add_back(img, cond)
-        if frames is not None:
-            frames = self.add_back(frames, cond[None])
-        return img if frames is None else (img, frames)
+        with annotate("chain"):
+            cond, denoise_fn = self.denoiser(batch)
+            if plan is None:
+                plan = chain_plan(schedule, sampler, steps=ddim_steps, eta=ddim_eta,
+                                  tau_spacing=tau_spacing, device=cond.device)
+            out = run_chain(plan, denoise_fn, tuple(cond.shape), device=cond.device,
+                            generator=generator, init=init, noises=noises,
+                            clip_denoised=clip_denoised, keep_every=keep_every)
+            img, frames = out if keep_every is not None else (out, None)
+            img = self.add_back(img, cond)
+            if frames is not None:
+                frames = self.add_back(frames, cond[None])
+            return img if frames is None else (img, frames)
 
     @torch.no_grad()
     def sample(

@@ -330,26 +330,28 @@ class DiffusionTrainer:
         return DevicePrefetcher(batches, self._device_batch, depth)
 
     def train_on_batch_async(self, batch: dict) -> torch.Tensor:
-        """One train step; returns the loss as a device scalar without reading it."""
-        b = self._device_batch(batch)
-        self._generator.manual_seed(step_seed(self.seed, self.step))
-        _seed_default_generator(self.device, step_seed(self.seed, self.step, 1))
-        self.optimizer.zero_grad(set_to_none=True)
-        with annotate("loss"):
-            loss = self._loss(b, self._generator)
-        with annotate("backward"):
-            loss.backward()
-            if self._sharded is not None:
-                self._sharded.reduce_gradients()
-        with annotate("optimizer"):
-            if self.grad_clip is not None:
-                clip_by_global_norm_(self.trainable, self.grad_clip, *(
-                    () if self._sharded is None else (self._sharded.leaf_norms,)))
-            self.optimizer.step()
-            self.step += 1
-            if self.ema is not None and self.step >= self.ema_start:
-                self._ema_update()
-        return loss.detach()
+        """One train step, inside a `train_step` span; returns the loss as a
+        device scalar without reading it."""
+        with annotate("train_step"):
+            b = self._device_batch(batch)
+            self._generator.manual_seed(step_seed(self.seed, self.step))
+            _seed_default_generator(self.device, step_seed(self.seed, self.step, 1))
+            self.optimizer.zero_grad(set_to_none=True)
+            with annotate("loss"):
+                loss = self._loss(b, self._generator)
+            with annotate("backward"):
+                loss.backward()
+                if self._sharded is not None:
+                    self._sharded.reduce_gradients()
+            with annotate("optimizer"):
+                if self.grad_clip is not None:
+                    clip_by_global_norm_(self.trainable, self.grad_clip, *(
+                        () if self._sharded is None else (self._sharded.leaf_norms,)))
+                self.optimizer.step()
+                self.step += 1
+                if self.ema is not None and self.step >= self.ema_start:
+                    self._ema_update()
+            return loss.detach()
 
     def train_on_batch(self, batch: dict) -> float:
         return float(self.train_on_batch_async(batch))
@@ -498,8 +500,7 @@ def run_training(opt: dict, data_handler, trainer: DiffusionTrainer,
                         cm = trace(profile_dir)
                         window = (cm, cm.__enter__(), trainer.step + profile_steps)
                         profile_dir = None  # one capture per run
-                    with annotate("train_step"):
-                        pending.append((trainer.step + 1, trainer.train_on_batch_async(batch)))
+                    pending.append((trainer.step + 1, trainer.train_on_batch_async(batch)))
                     timer.tick()
                     if window is not None and trainer.step >= window[2]:
                         close_window()

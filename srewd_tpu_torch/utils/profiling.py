@@ -3,7 +3,8 @@
   * `trace(logdir)`: a torch.profiler capture of the CPU and, with a card,
     CUDA activity, written into `logdir` as a Chrome trace on exit
     (chrome://tracing, Perfetto, or TensorBoard's torch plugin).
-  * `annotate(name)`: a named span in that trace (record_function).
+  * `annotate(name)`: a named span in that trace (record_function) while a
+    profiler records on this thread, and otherwise a shared null context.
   * `StepTimer`: rolling wall-clock step statistics. Steps are dispatched
     without waiting for the card, so `tick()` times the host's dispatch;
     over many steps that agrees with the card's pace, because the loss
@@ -51,9 +52,17 @@ def trace(logdir: str):
         prof.export_chrome_trace(prof.trace_path)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named span visible in profiler traces."""
-    return torch.profiler.record_function(name)
+    """A named span in the profiler's trace while a profiler records on this
+    thread; otherwise the one shared null context, so that a span costs a
+    check (record_function alone costs an operator call) and puts no
+    profiler op into a graph that torch.export traces."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class StepTimer:
