@@ -12,6 +12,7 @@ every residual architecture on one CUDA card and check them.
     python3 chip_smoke.py --quality        # phases 1-2, phase 6, phase 15
     python3 chip_smoke.py --extras         # phases 1-2, 6, 8 and 16
     python3 chip_smoke.py --k2-wide        # phases 1-2, float32 K2 at D >= 256: both designs
+    python3 chip_smoke.py --k4             # phases 1-2, phase 3's K4 rows
     python3 chip_smoke.py --gloo-cuda      # phase 1, the collectives gloo carries on CUDA
 
 The whole run aims at 600 s or less. Its depth cut: phase 4 samples 16
@@ -76,7 +77,17 @@ with an option), whole:
                 head width and dtype, one `kernel_ragged` line at N=200
                 (the last tiles partly past N: TMA's zero fill against the
                 -inf mask), K1 with its LSE and K2 twice, correctness only,
-                under the same tolerances.
+                under the same tolerances. Then K4 (csrc/conv3x3.cu) at each
+                of the 58 float32 3x3 convolutions of a phydiff UNet call
+                (batch 8, found by hooks with the layer's own predicate),
+                one `kernel` line a shape with the calls per UNet call, max
+                abs error against a float64 convolution on the card (K1's
+                float32 tolerance), two runs bit for bit, ms, device_ms,
+                the plain version's ms, cuDNN's float32 F.conv2d as
+                library_ms, the weight split's ms and the bound at 165
+                TFLOP/s; a `kernel_level` line per map size and a
+                `kernel_total` line; `kernel_edge` lines check a partial
+                channel chunk, maps off the 8 x 16 tile and a split.
   4. slice    — `srewd_tpu_torch.sample.main` on a synthetic 128x256 / 32x64
                 t2m tree with the shipped DDIM-50 phydiff config at full width:
                 16 fields in float32 (SLICE_FIELDS, the depth cut named
@@ -115,8 +126,10 @@ with an option), whole:
                 RRDBNet (nf 64, 17 blocks, batch 32, amsgrad) and SimpleCNN
                 (batch 128) configs on a 7-day synthetic tree: losses and
                 Kelvin metrics finite, the `pretrain_<name>_E0` checkpoint
-                reloads into a fresh encoder, RRDB steps/s; no kernel and no
-                plain version runs (the encoders are convolutions).
+                reloads into a fresh encoder, RRDB steps/s; no plain version
+                runs and none of K1-K3 (the encoders are convolutions: K4
+                takes their float32 3x3 ones only where no graph is recorded,
+                at evaluation).
   9. archs    — resdiff (SimpleCNN prediction as condition), srdiff and
                 physrdiff (RRDB), each shipped config at full width on phase
                 8's encoders: `sample.main` with DPM-25 at batch 8 over 16
@@ -367,8 +380,8 @@ phase 14's ranks counted in their own processes; `launches_by_phase` splits
 them, 13(b) as `serve_replicas`; the launches that
 hold a kernel against its plain version are not among them); `ms`, `plain_ms`,
 `library_ms` and `bound_ms` are device time per main-path unit, float32:
-one UNet call at batch 8 for K1 and K3, one training step at batch 4 for K2
-and the K3 backward (per shape: calls x the median time of one call); K3's
+one UNet call at batch 8 for K1, K3 and K4, one training step at batch 4 for
+K2 and the K3 backward (per shape: calls x the median time of one call); K3's
 `library_ms` sums its swish-less shapes only (`library_ms_covers`), and
 `torch_two_calls_ms` the F.silu(F.group_norm) yardstick of the others. `bound_ms` is the least
 time the card could take for that work: the larger of the bytes (each input
@@ -625,8 +638,9 @@ def unet_call_ms(torch, model, device) -> float:
 def arch_shapes(torch, device) -> tuple:
     """Phase 3's shape set: the union of the four residual architectures'
     main-path shapes, with phydiff's call counts (the other archs' counts
-    where a shape is theirs alone); per arch its counts and the ms of one
-    full-width UNet call, float32 and bfloat16."""
+    where a shape is theirs alone), and phydiff's K4 shapes; per arch its
+    counts (K4's included) and the ms of one full-width UNet call, float32
+    and bfloat16."""
     from collections import Counter
 
     attn, gn = Counter(), Counter()
@@ -634,6 +648,9 @@ def arch_shapes(torch, device) -> tuple:
     for arch in ("phydiff", "resdiff", "srdiff", "physrdiff"):
         model = full_width_model(torch, arch, device)
         a, n = main_path_shapes(torch, model, device)
+        convs = conv3x3_shapes(torch, model, device)
+        if arch == "phydiff":
+            conv = convs
         f32_ms = unet_call_ms(torch, model, device)
         # the compute dtype build_model(dtype=bfloat16) sets: the next chain
         # casts the UNet's weights once into its shadow, the encoder per call
@@ -649,13 +666,14 @@ def arch_shapes(torch, device) -> tuple:
         for k, c in n.items():
             gn[k] = gn.get(k) or c
         per_arch[arch] = {"attention_calls": sum(a.values()), "gn_calls": sum(n.values()),
+                          "conv3x3_calls": sum(convs.values()),
                           "cross_attention_calls": sum(c for (kind, *_), c in a.items()
                                                        if kind == "cross"),
                           "unet_call_ms_f32": f32_ms, "unet_call_ms_bf16": bf16_ms,
                           "shapes_added": [list(map(str, k)) for k in added]
                           if arch != "phydiff" else None}
         emit({"phase": "unet_call", "arch": arch, "batch": BATCH, **per_arch[arch]})
-    return attn, gn, per_arch
+    return attn, gn, conv, per_arch
 
 
 def _totals() -> dict:
@@ -1074,18 +1092,153 @@ def compare_gn(torch, gn_shapes, device) -> dict:
     return {"gn_swish": k3, "gn_swish_backward": k3b}
 
 
+def conv3x3_shapes(torch, model, device) -> dict:
+    """{(batch, Cin, Cout, H, W): calls} of the convolutions K4 takes in one
+    UNet call of a sampling chain (batch 8), found by hooks on every Conv2d
+    of the UNet with the layer's own routing predicate; as in
+    main_path_shapes, the chain-constant conditioning runs before the hooks
+    are set."""
+    from collections import Counter
+
+    from srewd_tpu_torch.models.layers import Conv2d
+    from srewd_tpu_torch.ops import conv3x3
+
+    shapes = Counter()
+
+    def hook(mod, inp):
+        x = inp[0]
+        if conv3x3.routes(x, mod.weight.to(x.dtype), mod.bias, mod.stride, mod.padding,
+                          mod.dilation, mod.groups, mod.padding_mode):
+            shapes[(x.shape[0], x.shape[1], mod.out_channels, x.shape[2], x.shape[3])] += 1
+
+    lr = torch.randn(BATCH, *LR_HW, 1, device=device)
+    with torch.no_grad():
+        cond, denoise_fn = model.denoiser({"LR": lr})
+        hooks = [m.register_forward_pre_hook(hook) for m in model.unet.modules()
+                 if isinstance(m, Conv2d)]
+        denoise_fn(torch.randn_like(cond), torch.rand(BATCH, device=device))
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+# K4's edge cases, correctness only: a partial last channel chunk (Cin 40),
+# maps not a multiple of the 8 x 16 tile, a map smaller than a tile, and a
+# split over the channel chunks beside an unsplit call of the same weights
+K4_EDGE_SHAPES = [(2, 40, 64, 13, 21), (3, 96, 32, 5, 7), (1, 512, 128, 8, 16),
+                  (2, 64, 96, 33, 70)]
+
+
+def compare_conv3x3(torch, conv_shapes, device) -> dict:
+    """K4 (batch 8) against a float64 convolution on the card at every
+    shape phydiff's UNet gives it, one line per shape, totals per map size
+    (level) and over all: ms (CUDA events, one call), device_ms (CUDA-graph
+    replay), the plain version's ms and cuDNN's float32 ms (F.conv2d, TF32
+    off; a yardstick the port does not call for these shapes), the bound at
+    165 TFLOP/s and 3.35 TB/s, two runs compared bit for bit; `calls` is
+    per UNet call."""
+    import torch.nn.functional as F
+
+    from srewd_tpu_torch.ops import launch
+    from srewd_tpu_torch.ops.conv3x3 import (_library, _sms, conv3x3, conv3x3_plan,
+                                             conv3x3_reference)
+
+    g = torch.Generator(device=device).manual_seed(4)
+    tot = _totals()
+    tot.update(device_ms=0.0)
+    levels = {}
+
+    def inputs(n, cin, cout, h, w):
+        x = torch.randn(n, cin, h, w, device=device, generator=g).contiguous(
+            memory_format=torch.channels_last)
+        wt = torch.randn(cout, cin, 3, 3, device=device, generator=g) / math.sqrt(9 * cin)
+        b = torch.randn(cout, device=device, generator=g)
+        return x, wt, b
+
+    def errors(x, wt, b):
+        out = conv3x3(x, wt, b)
+        again = conv3x3(x, wt, b)
+        ref = F.conv2d(x.double(), wt.double(), b.double(), padding=1)
+        torch.cuda.synchronize()
+        err = (out.double() - ref).abs().max().item()
+        return err, tolerance(torch, ref, torch.float32), bool(torch.equal(out, again))
+
+    for shape in K4_EDGE_SHAPES:
+        x, wt, b = inputs(*shape)
+        err, tol, same = errors(x, wt, b)
+        plan = conv3x3_plan(*shape[:3], *shape[3:], _sms(0))
+        emit({"phase": "kernel_edge", "kernel": "conv3x3", "shape": list(shape),
+              "max_abs_err_vs_float64": err, "tol": tol, "same_twice": same,
+              "bn": plan.bn, "splits": plan.splits})
+        check(err <= tol, f"conv3x3 {shape}: err {err} > {tol}")
+        check(same, f"conv3x3 gave another output on the same inputs ({shape})")
+    for (n, cin, cout, h, w), calls in sorted(conv_shapes.items(), key=lambda kv: -kv[0][3]):
+        x, wt, b = inputs(n, cin, cout, h, w)
+        err, tol, same = errors(x, wt, b)
+        ms = cuda_ms(torch, lambda: conv3x3(x, wt, b), 20)
+        dev_ms = graph_ms(torch, lambda: conv3x3(x, wt, b))
+        plain_ms = cuda_ms(torch, lambda: conv3x3_reference(x, wt, b), 5)
+        lib_ms = cuda_ms(torch, lambda: F.conv2d(x, wt, b, padding=1), 20)
+        parts = torch.empty(2, 9, cout, cin, device=device)
+        split_ms = cuda_ms(torch, lambda: launch(device, _library().srewd_conv3x3_split_weights,
+                                                 wt.data_ptr(), parts.data_ptr(), cout, cin), 10)
+        flops = 2.0 * n * h * w * cout * 9 * cin
+        bd = bound(flops, 4.0 * (x.numel() + wt.numel() + n * cout * h * w), PEAK_TF32X3)
+        plan = conv3x3_plan(n, cin, cout, h, w, _sms(0))
+        emit({"phase": "kernel", "kernel": "conv3x3",
+              "shape": [n, cin, cout, h, w], "dtype": "f32", "calls": calls, "max_abs_err_vs_float64": err,
+              "tol": tol, "same_twice": same, "ms": ms, "device_ms": dev_ms,
+              "plain_ms": plain_ms, "library_ms": lib_ms, "split_weights_ms": split_ms,
+              "bound_ms": bd[0], "bound_by": bd[1], "pct_of_bound": 100.0 * bd[0] / ms,
+              "device_pct_of_bound": 100.0 * bd[0] / dev_ms, "vs_library": ms / lib_ms,
+              "bn": plan.bn, "splits": plan.splits, "grid": plan.grid})
+        check(err <= tol, f"conv3x3 {[n, cin, cout, h, w]}: err {err} > {tol}")
+        check(same, f"conv3x3 gave another output on the same inputs ({[n, cin, cout, h, w]})")
+        tot["f32_err"] = max(tot["f32_err"], err)
+        _add(tot, calls, ms, plain_ms, lib_ms, bd, flops / PEAK_F32 * 1e3)
+        tot["device_ms"] += calls * dev_ms
+        lv = levels.setdefault(f"{h}x{w}", {"calls": 0, "ms": 0.0, "device_ms": 0.0,
+                                            "bound_ms": 0.0, "library_ms": 0.0})
+        for key, v in (("calls", 1), ("ms", ms), ("device_ms", dev_ms), ("bound_ms", bd[0]),
+                       ("library_ms", lib_ms)):
+            lv[key] += calls * v
+        del x, wt, b, parts
+        torch.cuda.empty_cache()
+    for name, lv in levels.items():
+        emit({"phase": "kernel_level", "kernel": "conv3x3", "level": name, **lv,
+              "pct_of_bound": 100.0 * lv["bound_ms"] / lv["ms"],
+              "device_pct_of_bound": 100.0 * lv["bound_ms"] / lv["device_ms"]})
+    tot["pct_of_bound"] = 100.0 * tot["bound_ms"] / tot["ms"]
+    tot["device_pct_of_bound"] = 100.0 * tot["bound_ms"] / tot["device_ms"]
+    tot["vs_library"] = tot["ms"] / tot["library_ms"]
+    emit({"phase": "kernel_total", "kernel": "conv3x3",
+          "calls": sum(conv_shapes.values()), **tot})
+    return {"conv3x3": tot}
+
+
+# The kernels a training step launches. K4 (conv3x3) is not among them: a
+# forward that records an autograd graph takes torch's convolution, so a
+# training phase's checks that every kernel ran read these four, and K4's
+# count is in the phase's line beside them.
+TRAIN_KERNELS = ("flash_attention", "flash_attention_backward", "gn_swish", "gn_swish_backward")
+
+
 def _counters():
+    from srewd_tpu_torch.ops import conv3x3 as cv
     from srewd_tpu_torch.ops import flash_attention as fa
     from srewd_tpu_torch.ops import fused_groupnorm as gn
 
     kernels = {"flash_attention": fa.flash_attention,
                "flash_attention_backward": fa.flash_attention_backward,
                "gn_swish": gn.gn_swish,
-               "gn_swish_backward": gn.gn_swish_backward}
+               "gn_swish_backward": gn.gn_swish_backward,
+               "conv3x3": cv.conv3x3}
     plain = {"attention_reference": fa.attention_reference,
              "attention_backward_reference": fa.attention_backward_reference,
              "gn_swish_reference": gn.gn_swish_reference,
-             "gn_swish_backward_reference": gn.gn_swish_backward_reference}
+             "gn_swish_backward_reference": gn.gn_swish_backward_reference,
+             "conv3x3_reference": cv.conv3x3_reference}
     return kernels, plain
 
 
@@ -1149,8 +1302,8 @@ def run_slice(torch, workdir):
     check(all(a.shape == (128, 256, 1) for a in fields), "field shape is not 128x256x1")
     check(finite, "non-finite values in the written fields")
     check(180.0 < lo and hi < 360.0, f"fields outside a plausible Kelvin range: [{lo}, {hi}]")
-    check(launches["flash_attention"] > 0 and launches["gn_swish"] > 0,
-          f"a kernel was not launched on the main path: {launches}")
+    check(launches["flash_attention"] > 0 and launches["gn_swish"] > 0
+          and launches["conv3x3"] > 0, f"a kernel was not launched on the main path: {launches}")
     check(sum(plain_calls.values()) == 0,
           f"the plain versions ran on the main path: {plain_calls}")
     return launches, summary
@@ -1403,7 +1556,7 @@ def run_train_slice(torch, workdir, device) -> dict:
           "val_kelvin": vals})
     check(sorted(losses) == list(range(1, 21)), f"steps logged: {sorted(losses)}")
     check(all(math.isfinite(v) for v in losses.values()), "a training loss is not finite")
-    check(all(launches[k] > 0 for k in launches), f"a kernel was not launched: {launches}")
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS), f"a kernel was not launched: {launches}")
     check(sum(plain_calls.values()) + sum(plain_resume.values()) == 0,
           f"the plain versions ran on the training path: {plain_calls} {plain_resume}")
     check(sorted(resumed) == list(range(11, 21)), f"resumed steps: {sorted(resumed)}")
@@ -1663,6 +1816,11 @@ def sample_arch(torch, workdir, arch, cfg_path, tag, extra, per_arch, fields) ->
     check(launches["flash_attention"] == unet_calls * per_arch[arch]["attention_calls"],
           f"{arch} {tag}: K1 launched {launches['flash_attention']} times for {unet_calls} "
           f"UNet calls of {per_arch[arch]['attention_calls']} attention calls")
+    # float32: K4 in every UNet call, and in the encoder's forward where the
+    # arch has one (once per batch, not counted by conv3x3_shapes)
+    check(tag.startswith("bf16") or launches["conv3x3"] >= unet_calls * per_arch[arch][
+        "conv3x3_calls"] > 0, f"{arch} {tag}: K4 launched {launches['conv3x3']} times for "
+          f"{unet_calls} UNet calls of {per_arch[arch]['conv3x3_calls']} K4 calls")
     check(launches["gn_swish"] == unet_calls * per_arch[arch]["gn_calls"],
           f"{arch} {tag}: K3 launched {launches['gn_swish']} times for {unet_calls} "
           f"UNet calls of {per_arch[arch]['gn_calls']} GN calls")
@@ -1827,7 +1985,8 @@ def train_arch(torch, workdir, arch, ckpt, device) -> dict:
           "ema_sample": {"summary": summary, "kelvin": fields, "launches": launches_sample}})
     check(sorted(losses) == [1, 2, 3, 4, 5], f"{arch}: steps logged {sorted(losses)}")
     check(all(math.isfinite(v) for v in losses.values()), f"{arch}: a loss is not finite")
-    check(all(launches[k] > 0 for k in launches), f"{arch}: a kernel was not launched: {launches}")
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+          f"{arch}: a kernel was not launched: {launches}")
     check(sum(plain.values()) + sum(plain_resume.values()) + sum(plain_sample.values()) == 0,
           f"{arch}: the plain versions ran: {plain} {plain_resume} {plain_sample}")
     check(sorted(resumed) == [4, 5], f"{arch}: resumed steps {sorted(resumed)}")
@@ -2248,12 +2407,13 @@ def train_bf16(torch, workdir, arch, device, per_arch, ckpts, f32_speed) -> dict
     first_step_sec = time.perf_counter() - t0
     launches, plain = read_counts()
     grads = _check_grads(torch, trainer.model)
-    check(launches == per_step and sum(plain.values()) == 0,
+    check({k: launches[k] for k in per_step} == per_step and sum(plain.values()) == 0,
           f"{arch} bf16 step: launches {launches} (expected {per_step}), plain calls {plain}")
     reset_counts()
     speed = _steps_per_sec(torch, trainer.train_on_batch_async, [(b,) for b in batches[1:]])
     launches5, plain5 = read_counts()
-    check(launches5 == {k: 5 * v for k, v in per_step.items()} and sum(plain5.values()) == 0,
+    check({k: launches5[k] for k in per_step} == {k: 5 * v for k, v in per_step.items()}
+          and sum(plain5.values()) == 0,
           f"{arch} bf16 steps: launches {launches5}, plain calls {plain5}")
     state = _float_state(trainer)
     check(all(v == ["torch.float32"] for k, v in state.items() if not k.startswith("n_"))
@@ -2406,10 +2566,11 @@ def run_bench_twins(torch, workdir, device) -> dict:
     one_plain_step = {"attention_reference": launches["flash_attention"] // steps,
                       "attention_backward_reference": launches["flash_attention_backward"] // steps,
                       "gn_swish_reference": launches["gn_swish"] // steps,
-                      "gn_swish_backward_reference": launches["gn_swish_backward"] // steps}
-    check(all(launches[k] > 0 and launches[k] % steps == 0 for k in launches)
+                      "gn_swish_backward_reference": launches["gn_swish_backward"] // steps,
+                      "conv3x3_reference": 0}
+    check(all(launches[k] > 0 and launches[k] % steps == 0 for k in TRAIN_KERNELS)
           and plain == one_plain_step, f"bench_train: {launches} {plain}")
-    check(set(log) == set(launches) and all(
+    check(set(log) == set(TRAIN_KERNELS) and all(
         r["differ_on_repeat"] == r["nonfinite"] == r["over_tol"] == 0 for r in log.values()),
           f"bench_train's batch-16 launches against their plain versions: {log}")
 
@@ -2433,7 +2594,7 @@ def run_bench_twins(torch, workdir, device) -> dict:
         runs[name]["sec"] = time.perf_counter() - t0
         launches, plain = read_counts()
         total.update(launches)
-        check(all(launches[k] > 0 for k in launches) and sum(plain.values()) == 0,
+        check(all(launches[k] > 0 for k in TRAIN_KERNELS) and sum(plain.values()) == 0,
               f"run_training {name}: {launches} {plain}")
     summary = trace_summary(runs["traced"]["trace"])
     cached = [v for _, v in runs["device_cache"]["losses"]]
@@ -2790,6 +2951,7 @@ def serve_http(torch, svc, stack, device, calls, dpm, setup_sec: float) -> dict:
           f"served fields outside a plausible Kelvin range: [{lo}, {hi}]")
     check(served_launches["flash_attention"] == n_batches * DPM_STEPS * calls["attention_calls"]
           and served_launches["gn_swish"] == n_batches * DPM_STEPS * calls["gn_calls"]
+          and served_launches["conv3x3"] == n_batches * DPM_STEPS * calls["conv3x3_calls"]
           and served_launches["flash_attention_backward"] == 0
           and served_launches["gn_swish_backward"] == 0 and sum(served_plain.values()) == 0,
           f"serve launches {served_launches} for {n_batches} batches, plain {served_plain}")
@@ -2798,7 +2960,7 @@ def serve_http(torch, svc, stack, device, calls, dpm, setup_sec: float) -> dict:
 
 def run_serving(torch, workdir, device, phase6, per_arch, attn_shapes, gn_shapes) -> dict:
     """Phase 13: the serving layer on phase 6's phydiff checkpoint (float32,
-    DPM-25, batch 8). The export_sampler entry point first (K1 and K3 as
+    DPM-25, batch 8). The export_sampler entry point first (K1, K3 and K4 as
     custom-op nodes: per step program as many as one eager UNet call
     launches), whose artifact a fresh process imports and loads while this
     one serves; SamplerService.from_checkpoint behind make_server on
@@ -2847,7 +3009,7 @@ t_start = time.perf_counter()
 from collections import Counter
 import numpy as np
 sys.path.insert(0, {REPO!r})
-from srewd_tpu_torch.ops import flash_attention as fa, fused_groupnorm as gn
+from srewd_tpu_torch.ops import conv3x3 as cv, flash_attention as fa, fused_groupnorm as gn
 from srewd_tpu_torch.serving.export import load_sampler
 out = {{"import_sec": time.perf_counter() - t_start, "launches": {{}}, "call_sec": {{}}}}
 t0 = time.perf_counter()
@@ -2863,14 +3025,15 @@ if sys.stdin.readline() != "go\\n":
 t_go = time.perf_counter()
 for b in (3, 8):
     lr = np.load({workdir!r} + f"/serve_lr{{b}}.npy")
-    before = fa.flash_attention.launches, gn.gn_swish.launches
+    before = fa.flash_attention.launches, gn.gn_swish.launches, cv.conv3x3.launches
     t0 = time.perf_counter()
     sr = fn(lr, np.ones(b, np.int32), seed={SERVE_SEED}).cpu().numpy()
     out["call_sec"][b] = time.perf_counter() - t0
     np.save({workdir!r} + f"/serve_sr{{b}}.npy", sr)
     out["launches"][b] = [fa.flash_attention.launches - before[0],
-                          gn.gn_swish.launches - before[1]]
-out["plain_calls"] = fa.attention_reference.calls + gn.gn_swish_reference.calls
+                          gn.gn_swish.launches - before[1], cv.conv3x3.launches - before[2]]
+out["plain_calls"] = (fa.attention_reference.calls + gn.gn_swish_reference.calls
+                      + cv.conv3x3_reference.calls)
 model_code = tuple("srewd_tpu_torch." + p for p in ("models", "configs", "diffusion", "training"))
 out["model_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "srewd_tpu")
                               or m.startswith(model_code))
@@ -2921,14 +3084,16 @@ print(json.dumps(out))
     sub = json.loads(stdout.strip().splitlines()[-1])
     nodes = sub["graph_nodes"]
     want_nodes = {"srewd.flash_attention.default": calls["attention_calls"],
-                  "srewd.gn_swish.default": calls["gn_calls"]}
+                  "srewd.gn_swish.default": calls["gn_calls"],
+                  "srewd.conv3x3.default": calls["conv3x3_calls"]}
     errs = {}
     for b in (3, 8):
         months = np.ones(b, np.int32)
         got = hr_sc.transform(np.load(os.path.join(workdir, f"serve_sr{b}.npy")), months)
         want, cond = wants[b]
         errs[b] = rel_rmse(torch.from_numpy(got - cond), torch.from_numpy(want - cond))
-    per_call = [DPM_STEPS * calls["attention_calls"], DPM_STEPS * calls["gn_calls"]]
+    per_call = [DPM_STEPS * calls["attention_calls"], DPM_STEPS * calls["gn_calls"],
+                DPM_STEPS * calls["conv3x3_calls"]]
     emit({"phase": "load_sampler", "sec_after_go": load_sec, "process_sec": sub["process_sec"],
           "import_sec": sub["import_sec"], "load_sampler_sec": sub["load_sec"],
           "call_sec": sub["call_sec"], "graph_nodes": nodes,
@@ -2936,7 +3101,8 @@ print(json.dumps(out))
           "plain_calls": sub["plain_calls"], "model_modules": sub["model_modules"]})
     check(nodes["step"] == want_nodes and not nodes["condition"],
           f"the step program's custom-op nodes {nodes} are not one UNet call's "
-          f"{calls['attention_calls']} K1 and {calls['gn_calls']} K3 calls")
+          f"{calls['attention_calls']} K1, {calls['gn_calls']} K3 and "
+          f"{calls['conv3x3_calls']} K4 calls")
     check(all(e <= 1e-4 for e in errs.values()),
           f"the loaded artifact is off generate_sr by {errs} (relative RMSE, bound 1e-4)")
     check(all(v == per_call for v in sub["launches"].values()) and sub["plain_calls"] == 0,
@@ -2945,6 +3111,7 @@ print(json.dumps(out))
     check(not sub["model_modules"], f"loading the artifact imported {sub['model_modules']}")
     total["flash_attention"] += sum(v[0] for v in sub["launches"].values())
     total["gn_swish"] += sum(v[1] for v in sub["launches"].values())
+    total["conv3x3"] += sum(v[2] for v in sub["launches"].values())
 
     dispatch = op_dispatch_us(torch, device, attn_shapes, gn_shapes)
     emit({"phase": "op_dispatch", "host_us_per_call": dispatch,
@@ -3576,7 +3743,7 @@ def run_ddp_nccl(torch, workdir, phase6) -> dict:
     check(a["backend"] == "nccl" and a["world_size"] == 1, f"not NCCL at world size 1: {a}")
     check(a["loss_module"] == "DistributedDataParallel", f"the loss ran as {a['loss_module']}")
     check(len(a["losses"]) == DDP_STEPS, f"{len(a['losses'])} losses logged")
-    check(all(v > 0 for v in a["launches"].values()),
+    check(all(a["launches"][k] > 0 for k in TRAIN_KERNELS),
           f"a kernel was not launched in the rank: {a['launches']}")
     check(sum(a["plain_calls"].values()) == 0, f"the plain versions ran: {a['plain_calls']}")
     check(first_rel <= 1e-6, f"the first loss differs from phase 6's by {first_rel}")
@@ -3689,7 +3856,7 @@ def run_ddp_gloo(torch, workdir, device, cfg_path, procs) -> dict:
     check(sr_rel <= 1e-4, f"the gathered validation fields differ by {sr_rel} (relative RMSE)")
     check(val_rel <= 1e-4, f"the gathered validation's metrics differ by {val_rel}")
     for x in ranks:
-        check(all(v > 0 for v in x["launches"].values()),
+        check(all(x["launches"][k] > 0 for k in TRAIN_KERNELS),
               f"a kernel was not launched in a rank: {x['launches']}")
         check(sum(x["plain_calls"].values()) == 0, f"the plain versions ran: {x['plain_calls']}")
     del trainer, saved
@@ -3759,7 +3926,7 @@ def run_shard(torch, workdir, procs, reference, t0) -> dict:
     for x in ranks:
         check(x["bytes"]["params_plus_moments"] < 0.51 * full,
               f"a rank holds {x['bytes']} of the unsharded {reference['bytes']}")
-        check(all(v > 0 for v in x["launches"].values()),
+        check(all(x["launches"][k] > 0 for k in TRAIN_KERNELS),
               f"a kernel was not launched in a rank: {x['launches']}")
         check(sum(x["plain_calls"].values()) == 0, f"the plain versions ran: {x['plain_calls']}")
     return {k: sum(x["launches"][k] for x in ranks) for k in ranks[0]["launches"]}
@@ -4017,7 +4184,7 @@ def run_quality(torch, workdir, device, phase6, per_call) -> dict:
     emit(line)
     check(all(math.isfinite(v) for v in out["train_loss_mean100"]) and out["train_loss_mean100"],
           f"training losses not finite: {out['train_loss_mean100']}")
-    check(all(train_launches[k] > 0 for k in train_launches),
+    check(all(train_launches[k] > 0 for k in TRAIN_KERNELS),
           f"a kernel was not launched in the training: {train_launches}")
     check(sum(seen["train_plain"].values()) == 0,
           f"the plain versions ran in the training: {seen['train_plain']}")
@@ -4164,7 +4331,8 @@ def extras_train(torch, workdir, device, phase6, per_call, name) -> dict:
     check([s for s, _ in run["losses"]] == [21, 22, 23, 24, 25],
           f"{name}: steps logged {[s for s, _ in run['losses']]}")
     check(all(math.isfinite(v) for v in losses), f"{name}: a loss is not finite: {losses}")
-    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    check({k: launches[k] for k in want} == want,
+          f"{name}: launches {launches}, expected {want}")
     check(sum(plain.values()) == 0, f"{name}: the plain versions ran: {plain}")
     return {"optimizer": kind, "losses": losses, "sec_train_main": sec, **speed,
             "launches": launches, "plain_calls": plain}
@@ -4404,7 +4572,7 @@ def extras_worker_batches(torch, device, phase6) -> dict:
             "losses": losses, "sec": sec, "launches": launches, "plain_calls": plain}
     check(all(equal) and len(equal) == WORKER_STEPS, f"worker batches: {line}")
     check(all(math.isfinite(v) for v in losses), f"worker-fed losses: {losses}")
-    check(all(v > 0 for v in launches.values()) and sum(plain.values()) == 0,
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS) and sum(plain.values()) == 0,
           f"worker-fed steps: launches {launches}, plain {plain}")
     del trainer
     torch.cuda.empty_cache()
@@ -4475,9 +4643,11 @@ def kernel_name(demangled: str) -> str:
     return name.split("(")[0]
 
 
-# Kernels that use no tensor cores by design: K2's Δ = rowsum(dO ∘ O), and
-# K3 forward and backward (GroupNorm is bound by memory and has no product).
-NO_HMMA = ("flash_bwd_delta_kernel", "gn_fwd_kernel", "gn_bwd_kernel", "gn_wb_kernel")
+# Kernels that use no tensor cores by design: K2's Δ = rowsum(dO ∘ O), K3
+# forward and backward (GroupNorm is bound by memory and has no product), and
+# K4's weight split and split-sum kernels (elementwise).
+NO_HMMA = ("flash_bwd_delta_kernel", "gn_fwd_kernel", "gn_bwd_kernel", "gn_wb_kernel",
+           "k4::conv3x3_split_kernel", "k4::conv3x3_reduce_kernel")
 
 
 def needs_hmma(name: str) -> bool:
@@ -4487,12 +4657,13 @@ def needs_hmma(name: str) -> bool:
 
 def tensor_core_op(name: str):
     """The tensor-core instruction phase 2 requires in kernel `name`: HGMMA
-    (warpgroup MMA) in K1's and K2's kernels of the wgmma design (`fa3::`),
+    (warpgroup MMA) in K1's and K2's kernels of the wgmma design (`fa3::`)
+    and in K4's (`k4::`),
     HMMA (mma.sync) in those of the warp-MMA design kept for some widths
     (`fa2::`), None where no product is needed (NO_HMMA)."""
     if not needs_hmma(name):
         return None
-    return "HGMMA" if name.startswith("fa3::") else "HMMA"
+    return "HGMMA" if name.startswith(("fa3::", "k4::")) else "HMMA"
 
 
 def mma_sync_widths(names) -> list:
@@ -4538,11 +4709,13 @@ def main(argv: list) -> int:
     bf16_steps = argv[1] if len(argv) == 2 and argv[0] == "--bf16-step" else None
     worker = argv[1] if len(argv) >= 3 and argv[0] == "--worker" else None
     if argv not in ([], ["--profile"], ["--train-kernels"], ["--serve"], ["--ddp"],
-                    ["--quality"], ["--extras"], ["--k2-wide"], ["--gloo-cuda"]) and not (
+                    ["--quality"], ["--extras"], ["--k2-wide"], ["--k4"],
+                    ["--gloo-cuda"]) and not (
             (stress or bf16_steps or "").isdigit()) and worker not in (
                 "train-main", "gloo-step", "shard-step", "gloo-cuda"):
         print(f"chip_smoke: unknown arguments {argv}; the options are --profile, "
-              "--train-kernels, --serve, --ddp, --quality, --extras, --k2-wide, --gloo-cuda, "
+              "--train-kernels, --serve, --ddp, --quality, --extras, --k2-wide, --k4, "
+              "--gloo-cuda, "
               "--stress N "
               "and --bf16-step N", file=sys.stderr)
         return 2
@@ -4587,7 +4760,7 @@ def main(argv: list) -> int:
         say(smi)
         return 0
 
-    from srewd_tpu_torch.ops import _build
+    from srewd_tpu_torch.ops import _build, conv3x3
     from srewd_tpu_torch.ops import fused_groupnorm
     from srewd_tpu_torch.ops.flash_attention import _bwd_library, _library
 
@@ -4596,6 +4769,7 @@ def main(argv: list) -> int:
     _library()
     _bwd_library()
     fused_groupnorm._library()
+    conv3x3._library()
     t_nvcc = time.perf_counter() - t0
     emit({"phase": "build", "sources": list(_build.SOURCES), "nvcc_sec": t_nvcc,
           "nvcc_sec_by_source": dict(_build.BUILD_SECONDS),
@@ -4637,6 +4811,13 @@ def main(argv: list) -> int:
         say(smi)
         return 0
 
+    if argv == ["--k4"]:
+        shapes = conv3x3_shapes(torch, full_width_model(torch, "phydiff", device), device)
+        torch.cuda.empty_cache()
+        compare_conv3x3(torch, shapes, device)
+        say(smi)
+        return 0
+
     if argv == ["--extras"]:
         a, n = main_path_shapes(torch, full_width_model(torch, "phydiff", device), device)
         torch.cuda.empty_cache()
@@ -4650,10 +4831,11 @@ def main(argv: list) -> int:
         say(result_line(torch))
         return 0
 
-    attn_shapes, gn_shapes, per_arch = arch_shapes(torch, device)
+    attn_shapes, gn_shapes, conv_shapes, per_arch = arch_shapes(torch, device)
     emit({"phase": "shapes", "archs": list(per_arch),
           "attention": [[kind, n, d, c] for (kind, n, d), c in sorted(attn_shapes.items())],
           "gn_swish": [[list(s), g, sw, c] for (s, g, sw), c in sorted(gn_shapes.items())],
+          "conv3x3": [[list(k), c] for k, c in sorted(conv_shapes.items())],
           "added_by_resdiff_srdiff_physrdiff": sum(
               len(per_arch[a]["shapes_added"]) for a in ("resdiff", "srdiff", "physrdiff"))})
     if argv == ["--train-kernels"]:
@@ -4669,7 +4851,8 @@ def main(argv: list) -> int:
         say(smi)
         return 0
     kernels = {**compare_attention(torch, attn_shapes, device),
-               **compare_gn(torch, gn_shapes, device)}
+               **compare_gn(torch, gn_shapes, device),
+               **compare_conv3x3(torch, conv_shapes, device)}
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
@@ -4717,6 +4900,7 @@ def main(argv: list) -> int:
               "srewd_tpu/ops/pallas_fused.py:149"),
         entry("gn_swish_backward", "srewd_tpu_torch/csrc/gn_swish.cu",
               "srewd_tpu/ops/pallas_fused.py:211"),
+        entry("conv3x3", "srewd_tpu_torch/csrc/conv3x3.cu", "none (XLA's convolutions)"),
     ]})
     say(smi)
     say(result_line(torch))

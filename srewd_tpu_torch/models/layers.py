@@ -13,6 +13,12 @@ bf16 sampling casts the weights once per chain instead, into a shadow copy
 of the UNet (models/factory.py), as the JAX package pre-casts its params
 outside the scan; then every cast here is a no-op.
 
+`Conv2d` sends the forward of a float32 3x3 convolution of stride 1 and
+padding 1 on a card that records no autograd graph (sampling, serving, and
+a locked encoder's no_grad forward inside a training step) to K4
+(`ops/conv3x3.py` `routes` is the predicate); every other call takes
+torch's own convolution.
+
 `Dropout` draws its mask over the global batch (parallel/): W ranks at
 batch B drop what one process at batch W B drops, as JAX's mask is drawn
 over the global sharded array.
@@ -24,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import conv3x3
 from ..parallel import draw_rows
 
 
@@ -33,7 +40,11 @@ def _cast(p, dtype):
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        weight, bias = self.weight.to(x.dtype), _cast(self.bias, x.dtype)
+        if conv3x3.routes(x, weight, bias, self.stride, self.padding, self.dilation,
+                          self.groups, self.padding_mode):
+            return conv3x3.conv3x3(x, weight, bias)
+        return self._conv_forward(x, weight, bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

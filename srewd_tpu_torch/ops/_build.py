@@ -34,7 +34,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "srewd_tpu_torch")
-SOURCES = ("flash_attention", "flash_attention_bwd", "gn_swish")
+SOURCES = ("flash_attention", "flash_attention_bwd", "gn_swish", "conv3x3")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

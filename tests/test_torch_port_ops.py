@@ -266,8 +266,8 @@ def test_check_qkv_refuses_misaligned_views(dtype):
 
 
 def test_build_sources_are_the_three_kernels():
-    # K1, K2 and K3 (forward and backward) are built from csrc/ by nvcc
-    assert _build.SOURCES == ("flash_attention", "flash_attention_bwd", "gn_swish")
+    # K1, K2, K3 (forward and backward) and K4 are built from csrc/ by nvcc
+    assert _build.SOURCES == ("flash_attention", "flash_attention_bwd", "gn_swish", "conv3x3")
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.CSRC_DIR, f"{name}.cu"))
 
